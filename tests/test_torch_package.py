@@ -1,0 +1,76 @@
+"""waverange_tpu_torch as a package: no JAX import, no build at import, no
+implicit CPU device, and a kernel builder that raises without nvcc."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from waverange_tpu_torch.core import codec as TC
+from waverange_tpu_torch.ops import _build
+from waverange_tpu_torch.ops import quant_cuda, wavelet_cuda
+
+REPO = Path(__file__).resolve().parent.parent
+
+_NO_JAX = """
+import sys
+import numpy as np
+import waverange_tpu_torch
+from waverange_tpu_torch.core import codec
+a = np.fromfunction(lambda k, j, i: np.sin(i / 3.0) * np.cos(j / 5.0) + k,
+                    (9, 10, 11))
+e = codec.encode_field(a, 1e-7, device="cpu")
+r = codec.decode_field(e, device="cpu")
+assert np.abs(r - a).max() <= 1.3e-7 * np.abs(a).max()
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("ok")
+"""
+
+
+def test_package_never_imports_jax():
+    # conftest imports JAX in this process, so the check runs in a new one
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_builder_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.ensure_built()
+    assert not (tmp_path / "build").exists()
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = np.ones((4, 4, 4))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TC.encode_field(a, 1e-6)
+    e = TC.encode_field(a, 1e-6, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TC.decode_field(e)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros((4, 4, 4), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wavelet_cuda.lift_fwd_axis(x, (4, 4, 4), 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wavelet_cuda.lift_inv_axis(x, (4, 4, 4), 2)
+    flat = x.view(-1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        quant_cuda.quant_layer(flat, torch.zeros(64, dtype=torch.uint8),
+                               torch.zeros(5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        quant_cuda.accumulate(torch.zeros((1, 64), dtype=torch.uint8),
+                              torch.ones(1, dtype=torch.float64),
+                              torch.zeros(1, dtype=torch.float64))

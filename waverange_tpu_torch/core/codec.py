@@ -1,0 +1,168 @@
+"""Field-level encode/decode with the device step on torch.
+
+Port of the device path of `waverange_tpu.core.codec` (`_encode_jax`,
+`_decode_jax`). The wavelet and the byte-layer quantizer run on the given
+torch device (hand-written CUDA kernels on a GPU, the plain torch versions
+on the CPU); the entropy stage is the shared host C++ coder of
+`waverange_tpu.native`, as in the JAX package (codec.py:285-286,
+:318-319).
+
+Streams are `waverange_tpu.core.codec.EncodedField`s, so the native and
+JAX decoders and the CLIs read them. On the f64 path they are byte
+identical to `backend="native"` at every tolerance, 1e-16 included, and
+decode is bit identical to the native decoder.
+
+There is no implicit device: the default is "cuda", which fails where no
+CUDA device is available.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from waverange_tpu import native as wn
+from waverange_tpu.core.codec import (CODER_VERSION, CODER_VERSION_TURBO,
+                                      NLAYMAX, WAV_LVL, EncodedField,
+                                      coder_id, coder_id_for_version)
+
+from ..ops.quant import decode_step, encode_step
+
+# f32 quantization floors at a few ulp of 2^-24: below this relative
+# tolerance precision="native" cannot meet the error contract
+# (waverange_tpu/core/codec.py:85-118). The f64 path has no floor.
+F32_REL_FLOOR = 1e-6
+
+_VERSION_BY_ID = {0: CODER_VERSION, 1: CODER_VERSION_TURBO}
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but CUDA is not available; "
+            "pass device='cpu' to run the plain torch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def state_from_numpy(planes, deps, minv, nlay, tolabs, midval, halfspanval,
+                     trivial, device="cuda"):
+    """Turn an `encode_step` result held as numpy (e.g. from
+    `waverange_tpu.ops.quant.encode_step`) into this package's tensors on
+    `device`, in the same order; the scalars become 0-d tensors."""
+    dev = _device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return (t(planes), t(deps), t(minv), t(np.int32(nlay)), t(tolabs),
+            t(midval), t(halfspanval), t(np.bool_(trivial)))
+
+
+def encode_field(fld: np.ndarray, tolrel: float, wtflag: int = 1,
+                 precision: str = "f64", coder: str = "range",
+                 conformance: str = "strict", device="cuda",
+                 cutoff: Optional[np.ndarray] = None,
+                 mx: int = 1, my: int = 1, mz: int = 1,
+                 backend: str = "torch",
+                 entropy: str = "host") -> EncodedField:
+    """Encode one (nz, ny, nx) field with the device step on `device`.
+
+    `precision`: "f64" (reference semantics; f32 input is widened) or
+    "native" (keep f32 input in f32; refused under conformance="strict"
+    below the f32 floor). `coder`: "range" (reference format) or
+    "rans"/"turbo" (format v2), both through the host coder. `cutoff`,
+    when given, is the uniform cutoff (one value, mx=my=mz=1) and replaces
+    `tolrel`, as in the native codec.
+    """
+    if backend == "exact64":
+        raise NotImplementedError(
+            "backend='exact64' is not ported yet (ROADMAP: port modules, "
+            "core/exact64.py)")
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r}")
+    if entropy == "device":
+        raise NotImplementedError(
+            "entropy='device' is not ported yet (ROADMAP: port modules, "
+            "ops/rans.py, and TPU kernels hist_blocks..dchain)")
+    if entropy != "host":
+        raise ValueError(f"unknown entropy stage {entropy!r}")
+    if conformance == "route":
+        raise NotImplementedError(
+            "conformance='route' is not ported yet (ROADMAP: port modules, "
+            "core/exact64.py)")
+    if conformance not in ("strict", "degraded"):
+        raise ValueError("conformance must be 'strict' or 'degraded'")
+    if not (mx == my == mz == 1):
+        raise NotImplementedError(
+            "non-uniform cutoffs (mx, my, mz != 1) are not ported yet "
+            "(ROADMAP: port modules, io/CLI entries)")
+    if precision not in ("f64", "native"):
+        raise ValueError("precision must be 'f64' or 'native'")
+    if cutoff is not None:
+        cutoff = np.asarray(cutoff, np.float64).ravel()
+        if cutoff.size != 1:
+            raise ValueError("a uniform cutoff holds one value")
+        tolrel = float(cutoff[0])
+    cid = coder_id(coder)
+    keep_f32 = precision == "native" and fld.dtype == np.float32
+    if keep_f32 and conformance == "strict" and tolrel < F32_REL_FLOOR:
+        raise ValueError(
+            f"tolerance {tolrel:g} is below the f32 path's error floor "
+            f"({F32_REL_FLOOR:g} relative); use precision='f64' or pass "
+            "conformance='degraded' to accept the floor")
+    dev = _device(device)
+    nz, ny, nx = fld.shape
+    arr = np.ascontiguousarray(fld, np.float32 if keep_f32 else np.float64)
+    x = torch.from_numpy(arr).to(dev)
+    planes, deps, minv, nlay, tolabs, midval, halfspan, trivial = (
+        encode_step(x, tolrel, wtflag=bool(wtflag), levels=WAV_LVL))
+    wlev = WAV_LVL if wtflag else 0
+    stats = torch.stack([tolabs, midval, halfspan, trivial.double(),
+                         nlay.double()]).cpu().tolist()
+    tolabs_f, midval_f, halfspan_f, trivial_f, nlay_f = stats
+    if trivial_f:
+        return EncodedField(
+            nx=nx, ny=ny, nz=nz, tolabs=0.0, midval=midval_f,
+            halfspanval=halfspan_f, wlev=wlev, nlay=0, ntot_enc=0,
+            deps_vec=np.zeros(NLAYMAX), minval_vec=np.zeros(NLAYMAX),
+            len_enc_vec=np.zeros(NLAYMAX, np.uint64), data=b"",
+            coder_version=_VERSION_BY_ID[cid])
+    nl = int(nlay_f)
+    payload, lens = wn.encode_planes_batch(planes[:nl].cpu().numpy(),
+                                           coder=cid)
+    deps_vec = np.zeros(NLAYMAX)
+    minv_vec = np.zeros(NLAYMAX)
+    len_vec = np.zeros(NLAYMAX, np.uint64)
+    deps_vec[:nl] = deps[:nl].double().cpu().numpy()
+    minv_vec[:nl] = minv[:nl].double().cpu().numpy()
+    len_vec[:nl] = lens
+    return EncodedField(
+        nx=nx, ny=ny, nz=nz, tolabs=tolabs_f, midval=midval_f,
+        halfspanval=halfspan_f, wlev=wlev, nlay=nl, ntot_enc=len(payload),
+        deps_vec=deps_vec, minval_vec=minv_vec, len_enc_vec=len_vec,
+        data=payload, coder_version=_VERSION_BY_ID[cid])
+
+
+def decode_field(enc: EncodedField, device="cuda") -> np.ndarray:
+    """Decode to an (nz, ny, nx) float64 array: host entropy decode, then
+    the layer accumulate and inverse wavelet on `device`."""
+    dev = _device(device)
+    shape = enc.shape_zyx
+    if enc.ntot_enc == 0:
+        return np.full(shape, enc.midval)
+    cid = coder_id_for_version(enc.coder_version)
+    nl = int(enc.nlay)
+    n = enc.nx * enc.ny * enc.nz
+    planes = wn.decode_planes_batch(enc.data, enc.len_enc_vec[:nl], n,
+                                    coder=cid)
+    out = decode_step(
+        torch.from_numpy(planes).to(dev),
+        torch.as_tensor(np.asarray(enc.deps_vec[:nl], np.float64), device=dev),
+        torch.as_tensor(np.asarray(enc.minval_vec[:nl], np.float64),
+                        device=dev),
+        shape, levels=int(enc.wlev))
+    return out.cpu().numpy()
