@@ -9,12 +9,18 @@ Run from the repository root on a machine with an NVIDIA Hopper card
 Phases:
   1. environment: the card's name and power limit, the torch, CUDA and
      nvcc versions; builds the CUDA kernels (timed);
-  2. every kernel against its plain torch version, bitwise, in f64 and
-     f32, at odd and even shapes; kernel and plain times at the main
-     path's shapes (512^3 f64);
-  3. the main path: `encode_field` / `decode_field` on a 512^3 f64 field
-     at tol 1e-16 and 1e-7, through all four kernels, byte-identical to
-     the native C++ codec, with the time split of the pipeline;
+  2. every kernel against its plain torch version, bitwise: the wavelet
+     and quantizer kernels A-D in f64 and f32 at odd and even shapes, the
+     rANS kernels E-H at sizes 1, 9, 65537 and 200001, on the `steal`,
+     `constant` and `uniform` (raw escape) distributions, on multi-plane
+     batches and on the 8 real byte planes of the 512^3 field at 1e-16;
+     kernel and plain times at the main path's shapes (512^3 f64);
+  3. the main paths, each with the launch counts set to 0 just before it
+     and read just after: `encode_field` / `decode_field` on a 512^3 f64
+     field at tol 1e-16 and 1e-7, (a) with the host range coder, through
+     kernels A-D, byte-identical to the native C++ codec, and (b) with
+     `coder="rans", entropy="device"`, through kernels A-H,
+     byte-identical to the native turbo codec; the time split of each;
   4. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where no CUDA device is available or
@@ -34,6 +40,7 @@ TOLS = (1e-16, 1e-7)
 LIFT_SHAPES = [(33, 31, 29), (17, 13, 9), (32, 1, 7), (1, 1, 64), (5, 5, 5),
                (64, 64, 64)]
 QUANT_SIZES = [1 << 20, 1_000_003]
+RANS_SIZES = [1, 9, 65537, 200001]
 
 
 def log(*a):
@@ -69,10 +76,16 @@ class Checker:
 
     def __call__(self, kernel, what, got, want):
         import torch
-        if got.dtype.is_floating_point:
+        if got.shape != want.shape:
+            raise AssertionError(f"{kernel}: {what}: shape "
+                                 f"{tuple(got.shape)}, plain "
+                                 f"{tuple(want.shape)}")
+        if not got.numel():
+            diff = 0.0
+        elif got.dtype.is_floating_point:
             diff = float((got.double() - want.double()).abs().max())
         else:
-            diff = float((got.int() - want.int()).abs().max())
+            diff = float((got.long() - want.long()).abs().max())
         self.err[kernel] = max(self.err.get(kernel, 0.0), diff)
         self.count[kernel] = self.count.get(kernel, 0) + 1
         if not torch.equal(got, want):
@@ -242,6 +255,125 @@ def phase_kernels(card, check):
     return times
 
 
+def rans_cases(rng):
+    """(name, (L, n) uint8 planes) of the rANS kernel checks."""
+    for n in RANS_SIZES:
+        yield f"n={n}", np.clip(rng.normal(100, 9, (1, n)), 0, 255).astype(
+            np.uint8)
+    n = 196608
+    steal = np.zeros(n, np.uint8)  # ~220 rare symbols: the steal loop
+    steal[:220] = np.arange(1, 221) % 256
+    rng.shuffle(steal)
+    yield "steal", steal[None]
+    yield "constant", np.full((1, n), 42, np.uint8)
+    yield "uniform", rng.integers(0, 256, (1, n), dtype=np.uint8)
+    batch = np.clip(rng.normal(100, 25, (3, 107520)), 0, 255).astype(
+        np.uint8)
+    batch[1] = 7
+    yield "3-plane batch, constant middle plane", batch
+    mixed = np.stack([np.clip(rng.normal(128, 60, 70001), 0, 255),
+                      rng.integers(0, 4, 70001), np.full(70001, 9),
+                      rng.integers(0, 256, 70001)]).astype(np.uint8)
+    yield "4-plane batch", mixed
+
+
+def check_rans(check, planes, n, what):
+    """Kernels E-H on the card against their plain versions on the same
+    inputs on the card, bitwise, and the streams against the native turbo
+    coder. Returns the inputs of each kernel for timing."""
+    import torch
+    from waverange_tpu import native as wn
+    from waverange_tpu_torch.ops import rans as R
+    from waverange_tpu_torch.ops import rans_cuda as RC
+
+    L = planes.shape[0]
+    etab, nsym = RC.rans_hist(planes, n)
+    etab_p, nsym_p = R.block_models_plain(planes, n)
+    check("rans_hist", what + " models", etab, etab_p)
+    check("rans_hist", what + " nsym", nsym, nsym_p)
+    del etab_p
+    slab, x_fin, nwords = RC.rans_chain(planes, n, etab)
+    slab_p, x_fin_p, nwords_p = R.chain_plain(planes, n, etab)
+    check("rans_chain", what + " x_fin", x_fin, x_fin_p)
+    check("rans_chain", what + " nwords", nwords, nwords_p)
+    # the kernel leaves the slab words before a block's stream undefined
+    undef = (torch.arange(R.SLAB_WORDS, device=planes.device)[None, :]
+             < R.SLAB_WORDS - nwords_p.long()[:, None])
+    check("rans_chain", what + " words", slab.masked_fill(undef, 0), slab_p)
+    del slab_p, undef, x_fin_p, nwords_p
+    nsym_h, nwords_h = torch.stack([nsym, nwords]).cpu().numpy()
+    _, wl, dest = R.block_layout(R.plane_bs(L, n), nsym_h, nwords_h)
+    dest = torch.from_numpy(dest).cuda()
+    total = int(wl.sum())
+    check("rans_compact", what, RC.rans_compact(x_fin, slab, nwords, dest,
+                                                total),
+          R.compact_plain(x_fin, slab, nwords, dest, total))
+    streams = R.encode_planes_device(planes, n)
+    host = planes.cpu().numpy()
+    for i, (got, p) in enumerate(zip(streams, host)):
+        if got != wn.encode_plane(p, coder=1):
+            raise AssertionError(f"{what}: plane {i} stream differs from "
+                                 "the native turbo coder")
+    data = b"".join(streams)
+    table = torch.from_numpy(
+        R.parse_planes(data, [len(s) for s in streams], n)).cuda()
+    data = R.bytes_tensor(data).cuda()
+    out = RC.rans_decode(data, table, L, n)
+    check("rans_decode", what, out, R.decode_blocks_plain(data, table, L, n))
+    check("rans_decode", what + " round trip", out, planes)
+    torch.cuda.synchronize()
+    return dict(etab=etab, slab=slab, x_fin=x_fin, nwords=nwords, dest=dest,
+                total=total, data=data, table=table)
+
+
+def phase_rans(card, check, fld):
+    """Kernels E-H against their plain versions: the synthetic cases, then
+    the 8 byte planes of the main field at 1e-16, where they are timed."""
+    import torch
+    from waverange_tpu_torch.ops import quant as Q
+    from waverange_tpu_torch.ops import rans as R
+    from waverange_tpu_torch.ops import rans_cuda as RC
+
+    rng = np.random.default_rng(SEED)
+    for name, p in rans_cases(rng):
+        check_rans(check, torch.from_numpy(p).cuda(), p.shape[1], name)
+    x = torch.from_numpy(fld).cuda()
+    planes, _, _, nlay, *_ = Q.encode_step(x, TOLS[0])
+    nl, n = int(nlay), planes.shape[1]
+    planes = planes[:nl]
+    del x
+    what = f"{N_MAIN}^3 f64 tol {TOLS[0]:g}, {nl} planes"
+    a = check_rans(check, planes, n, what)
+    L = nl
+    times = {
+        "rans_hist": (cuda_ms(lambda: RC.rans_hist(planes, n)),
+                      cuda_ms(lambda: R.block_models_plain(planes, n),
+                              reps=2)),
+        "rans_chain": (cuda_ms(lambda: RC.rans_chain(planes, n, a["etab"])),
+                       cuda_ms(lambda: R.chain_plain(planes, n, a["etab"]),
+                               reps=2)),
+        "rans_compact": (
+            cuda_ms(lambda: RC.rans_compact(a["x_fin"], a["slab"],
+                                            a["nwords"], a["dest"],
+                                            a["total"])),
+            cuda_ms(lambda: R.compact_plain(a["x_fin"], a["slab"],
+                                            a["nwords"], a["dest"],
+                                            a["total"]), reps=2)),
+        "rans_decode": (
+            cuda_ms(lambda: RC.rans_decode(a["data"], a["table"], L, n)),
+            cuda_ms(lambda: R.decode_blocks_plain(a["data"], a["table"], L,
+                                                  n), reps=2)),
+    }
+    for k in times:
+        log(f"check {k}: {check.count[k]} comparisons bitwise equal")
+    for k, (ms, plain_ms) in times.items():
+        log(f"time {k} ({what}): kernel {ms:.3f} ms, plain torch "
+            f"{plain_ms:.3f} ms [{card}]")
+    del planes, a
+    torch.cuda.empty_cache()
+    return times
+
+
 def make_field(n, rng):
     """The bench's CFD-like field (bench.py make_field): a smooth
     trigonometric base, coarse noise at 1/8 resolution and fine noise,
@@ -263,123 +395,193 @@ def make_field(n, rng):
     return out
 
 
-def phase_main(card):
+# The two main paths: (name, encode_field and decode_field keywords, native
+# coder id, kernels the path must launch).
+PATHS = [
+    ("host range coder", {}, {}, 0,
+     ("lift_fwd_axis", "lift_inv_axis", "quant_layer", "accumulate")),
+    ("device rANS", dict(coder="rans", entropy="device"),
+     dict(entropy="device"), 1,
+     ("lift_fwd_axis", "lift_inv_axis", "quant_layer", "accumulate",
+      "rans_hist", "rans_chain", "rans_compact", "rans_decode")),
+]
+
+
+def split_host(fld, tol):
+    """Stage times of the host-entropy path (seconds)."""
+    import torch
+    from waverange_tpu import native as wn
+    from waverange_tpu_torch.ops import quant as Q
+
+    torch.cuda.synchronize()
+    s = [time.perf_counter()]
+    x = torch.from_numpy(fld).cuda()
+    torch.cuda.synchronize()
+    s.append(time.perf_counter())
+    planes, deps, minv, nlay, *_ = Q.encode_step(x, tol)
+    nl = int(nlay)
+    s.append(time.perf_counter())
+    planes_np = planes[:nl].cpu().numpy()
+    s.append(time.perf_counter())
+    payload, lens = wn.encode_planes_batch(planes_np, coder=0)
+    s.append(time.perf_counter())
+    planes_np = wn.decode_planes_batch(payload, lens, fld.size, coder=0)
+    s.append(time.perf_counter())
+    pd = torch.from_numpy(planes_np).cuda()
+    torch.cuda.synchronize()
+    s.append(time.perf_counter())
+    out = Q.decode_step(pd, deps[:nl].clone(), minv[:nl].clone(), fld.shape)
+    torch.cuda.synchronize()
+    s.append(time.perf_counter())
+    out.cpu()
+    s.append(time.perf_counter())
+    d = np.diff(s)
+    return {"h2d_field_s": d[0], "device_encode_s": d[1],
+            "d2h_planes_s": d[2], "host_entropy_encode_s": d[3],
+            "host_entropy_decode_s": d[4], "h2d_planes_s": d[5],
+            "device_decode_s": d[6], "d2h_field_s": d[7]}
+
+
+def split_device(fld, tol):
+    """Stage times of the device-entropy path (seconds)."""
+    import torch
+    from waverange_tpu_torch.ops import quant as Q
+    from waverange_tpu_torch.ops import rans as R
+
+    n = fld.size
+    torch.cuda.synchronize()
+    s = [time.perf_counter()]
+    x = torch.from_numpy(fld).cuda()
+    torch.cuda.synchronize()
+    s.append(time.perf_counter())
+    planes, deps, minv, nlay, *_ = Q.encode_step(x, tol)
+    nl = int(nlay)
+    s.append(time.perf_counter())
+    enc = R.encode_blocks(planes[:nl], n)
+    torch.cuda.synchronize()
+    s.append(time.perf_counter())
+    enc = R.fetch(enc)
+    s.append(time.perf_counter())
+    streams = R.frame(enc)
+    data = b"".join(streams)
+    s.append(time.perf_counter())
+    del x, planes, enc
+    table = R.parse_planes(data, [len(t) for t in streams], n)
+    s.append(time.perf_counter())
+    data_d = R.bytes_tensor(data).cuda()
+    table_d = torch.from_numpy(table).cuda()
+    torch.cuda.synchronize()
+    s.append(time.perf_counter())
+    pd = R.decode_blocks(data_d, table_d, nl, n)
+    torch.cuda.synchronize()
+    s.append(time.perf_counter())
+    del data_d, table_d
+    out = Q.decode_step(pd, deps[:nl].clone(), minv[:nl].clone(), fld.shape)
+    torch.cuda.synchronize()
+    s.append(time.perf_counter())
+    out.cpu()
+    s.append(time.perf_counter())
+    d = np.diff(s)
+    del pd, out
+    return {"h2d_field_s": d[0], "device_encode_s": d[1],
+            "device_entropy_encode_s": d[2], "d2h_compressed_s": d[3],
+            "host_framing_s": d[4], "host_parse_s": d[5],
+            "h2d_compressed_s": d[6], "device_entropy_decode_s": d[7],
+            "device_decode_s": d[8], "d2h_field_s": d[9],
+            "compressed_bytes": len(data)}
+
+
+def phase_main(card, fld):
     import torch
     from waverange_tpu import native as wn
     from waverange_tpu_torch.core import codec as tc
-    from waverange_tpu_torch.ops import quant as Q
     from waverange_tpu_torch.ops import quant_cuda as QC
+    from waverange_tpu_torch.ops import rans_cuda as RC
     from waverange_tpu_torch.ops import wavelet_cuda as WC
 
-    n = N_MAIN
-    t0 = time.perf_counter()
-    fld = make_field(n, np.random.default_rng(SEED))
-    log(f"main: {n}^3 f64 field ({fld.nbytes / 2**30:.2f} GiB) made in "
-        f"{time.perf_counter() - t0:.1f} s")
     gb = fld.nbytes / 1e9
     amax = float(np.abs(fld).max())
     wn.pool_warm(fld.size)
-
-    counters = (WC.LAUNCHES, QC.LAUNCHES)
-    for c in counters:
-        for k in c:
-            c[k] = 0
-    port = {}
-    for tol in TOLS:
-        before = {k: v for c in counters for k, v in c.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        enc = tc.encode_field(fld, tol, device="cuda")
-        t1 = time.perf_counter()
-        dec = tc.decode_field(enc, device="cuda")
-        t2 = time.perf_counter()
-        grown = {k: v - before[k] for c in counters for k, v in c.items()}
-        if min(grown.values()) < 1:
-            raise AssertionError(f"main path at tol {tol:g} missed a "
-                                 f"kernel: launches {grown}")
-        port[tol] = (enc, dec, t1 - t0, t2 - t1, grown)
-    launches = {k: v for c in counters for k, v in c.items()}
-    log(f"main: kernel launches on the main path: {launches}")
-
+    counters = (WC.LAUNCHES, QC.LAUNCHES, RC.LAUNCHES)
+    launches = {k: 0 for c in counters for k in c}
     rows = []
-    for tol in TOLS:
-        enc, dec, t_enc, t_dec, grown = port[tol]
-        t0 = time.perf_counter()
-        nat = wn.encode_field(fld, wtflag=1, cutoff=np.array([tol]))
-        t1 = time.perf_counter()
-        ndec = wn.decode_field(nat, fld.shape)
-        t2 = time.perf_counter()
-        same = {
-            "data": enc.data == nat["data"],
-            "nlay": enc.nlay == nat["nlay"],
-            "deps_vec": enc.deps_vec.tobytes() == nat["deps_vec"].tobytes(),
-            "minval_vec": (enc.minval_vec.tobytes()
-                           == nat["minval_vec"].tobytes()),
-            "len_enc_vec": (enc.len_enc_vec.tobytes()
-                            == nat["len_enc_vec"].tobytes()),
-            "tolabs": enc.tolabs == nat["tolabs"],
-            "midval": enc.midval == nat["midval"],
-            "halfspanval": enc.halfspanval == nat["halfspanval"],
-            "decode": dec.tobytes() == ndec.tobytes(),
-        }
-        if not all(same.values()):
-            raise AssertionError(f"tol {tol:g}: port differs from the "
-                                 f"native codec: {same}")
-        # the bench's limit (bench.py:712): the error contract, or twice
-        # the native decode's error where round-off dominates (1e-16)
-        err = float(np.abs(dec - fld).max())
-        bound = max(1.3 * tol * amax, 2.0 * float(np.abs(ndec - fld).max()))
-        if not (np.isfinite(dec).all() and dec.shape == fld.shape
-                and err <= bound):
-            raise AssertionError(f"tol {tol:g}: decode error {err:g} "
-                                 f"above {bound:g}")
-        log(f"main tol {tol:g}: nlay {enc.nlay}, {enc.ntot_enc} bytes "
-            f"(ratio {fld.nbytes / enc.ntot_enc:.3f}), stream and metadata "
-            f"byte-identical to native, decode bit-identical, max err "
-            f"{err:.3e} <= {bound:.3e}; launches {grown}")
+    for name, enc_kw, dec_kw, cid, needed in PATHS:
+        port = {}
+        for c in counters:  # the counts start at 0 just before the path
+            for k in c:
+                c[k] = 0
+        for tol in TOLS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = tc.encode_field(fld, tol, device="cuda", **enc_kw)
+            t1 = time.perf_counter()
+            dec = tc.decode_field(enc, device="cuda", **dec_kw)
+            t2 = time.perf_counter()
+            port[tol] = (enc, dec, t1 - t0, t2 - t1)
+        grown = {k: v for c in counters for k, v in c.items()}
+        missed = [k for k in needed if grown[k] < 1]
+        if missed:
+            raise AssertionError(f"main path ({name}) missed kernels "
+                                 f"{missed}: launches {grown}")
+        for k, v in grown.items():
+            launches[k] += v
+        log(f"main ({name}): kernel launches on the path: {grown}")
 
-        # Time split of the port's pipeline, stage by stage.
-        torch.cuda.synchronize()
-        s = [time.perf_counter()]
-        x = torch.from_numpy(fld).cuda()
-        torch.cuda.synchronize()
-        s.append(time.perf_counter())
-        planes, deps, minv, nlay, *_ = Q.encode_step(x, tol)
-        nl = int(nlay)
-        s.append(time.perf_counter())
-        planes_np = planes[:nl].cpu().numpy()
-        s.append(time.perf_counter())
-        payload, lens = wn.encode_planes_batch(planes_np, coder=0)
-        s.append(time.perf_counter())
-        planes_np = wn.decode_planes_batch(payload, lens, fld.size, coder=0)
-        s.append(time.perf_counter())
-        pd = torch.from_numpy(planes_np).cuda()
-        torch.cuda.synchronize()
-        s.append(time.perf_counter())
-        out = Q.decode_step(pd, deps[:nl].clone(), minv[:nl].clone(),
-                            fld.shape)
-        torch.cuda.synchronize()
-        s.append(time.perf_counter())
-        out.cpu()
-        s.append(time.perf_counter())
-        d = np.diff(s)
-        split = {"h2d_field_s": d[0], "device_encode_s": d[1],
-                 "d2h_planes_s": d[2], "host_entropy_encode_s": d[3],
-                 "host_entropy_decode_s": d[4], "h2d_planes_s": d[5],
-                 "device_decode_s": d[6], "d2h_field_s": d[7]}
-        del x, planes, deps, minv, pd, out
-        torch.cuda.empty_cache()
-        row = {"tol": tol, "nlay": enc.nlay,
-               "ratio": fld.nbytes / enc.ntot_enc,
-               "port_encode_s": t_enc, "port_decode_s": t_dec,
-               "native_encode_s": t1 - t0, "native_decode_s": t2 - t1,
-               "port_encode_gbps": gb / t_enc, "port_decode_gbps": gb / t_dec,
-               "native_encode_gbps": gb / (t1 - t0),
-               "native_decode_gbps": gb / (t2 - t1), **split}
-        rows.append(row)
-        log(f"main tol {tol:g} times [{card}]: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in row.items() if k.endswith("_s")
-            or k.endswith("_gbps")))
+        for tol in TOLS:
+            enc, dec, t_enc, t_dec = port[tol]
+            t0 = time.perf_counter()
+            nat = wn.encode_field(fld, wtflag=1, cutoff=np.array([tol]),
+                                  coder=cid)
+            t1 = time.perf_counter()
+            ndec = wn.decode_field(nat, fld.shape, coder=cid)
+            t2 = time.perf_counter()
+            same = {
+                "data": enc.data == nat["data"],
+                "nlay": enc.nlay == nat["nlay"],
+                "deps_vec": (enc.deps_vec.tobytes()
+                             == nat["deps_vec"].tobytes()),
+                "minval_vec": (enc.minval_vec.tobytes()
+                               == nat["minval_vec"].tobytes()),
+                "len_enc_vec": (enc.len_enc_vec.tobytes()
+                                == nat["len_enc_vec"].tobytes()),
+                "tolabs": enc.tolabs == nat["tolabs"],
+                "midval": enc.midval == nat["midval"],
+                "halfspanval": enc.halfspanval == nat["halfspanval"],
+                "decode": dec.tobytes() == ndec.tobytes(),
+            }
+            if not all(same.values()):
+                raise AssertionError(f"{name}, tol {tol:g}: port differs "
+                                     f"from the native codec: {same}")
+            # the bench's limit (bench.py:712): the error contract, or
+            # twice the native decode's error where round-off dominates
+            err = float(np.abs(dec - fld).max())
+            bound = max(1.3 * tol * amax,
+                        2.0 * float(np.abs(ndec - fld).max()))
+            if not (np.isfinite(dec).all() and dec.shape == fld.shape
+                    and err <= bound):
+                raise AssertionError(f"{name}, tol {tol:g}: decode error "
+                                     f"{err:g} above {bound:g}")
+            log(f"main ({name}) tol {tol:g}: nlay {enc.nlay}, "
+                f"{enc.ntot_enc} bytes (ratio "
+                f"{fld.nbytes / enc.ntot_enc:.3f}), stream and metadata "
+                f"byte-identical to native, decode bit-identical, max err "
+                f"{err:.3e} <= {bound:.3e}")
+            split = (split_device if cid else split_host)(fld, tol)
+            torch.cuda.empty_cache()
+            row = {"path": name, "tol": tol, "nlay": enc.nlay,
+                   "ratio": fld.nbytes / enc.ntot_enc,
+                   "port_encode_s": t_enc, "port_decode_s": t_dec,
+                   "native_encode_s": t1 - t0, "native_decode_s": t2 - t1,
+                   "port_encode_gbps": gb / t_enc,
+                   "port_decode_gbps": gb / t_dec,
+                   "native_encode_gbps": gb / (t1 - t0),
+                   "native_decode_gbps": gb / (t2 - t1), **split}
+            rows.append(row)
+            log(f"main ({name}) tol {tol:g} times [{card}]: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row.items() if k.endswith("_s")
+                or k.endswith("_gbps")))
+        del port
+    log(f"main: kernel launches on the main paths: {launches}")
     return launches, rows
 
 
@@ -413,19 +615,33 @@ def main():
 
     check = Checker()
     times = phase_kernels(card, check)
-    launches, rows = phase_main(card)
+    t0 = time.perf_counter()
+    fld = make_field(N_MAIN, np.random.default_rng(SEED))
+    log(f"main: {N_MAIN}^3 f64 field ({fld.nbytes / 2**30:.2f} GiB) made "
+        f"in {time.perf_counter() - t0:.1f} s")
+    times.update(phase_rans(card, check, fld))
+    launches, rows = phase_main(card, fld)
 
+    rk = "waverange_tpu/ops/rans_kernels.py"
     replaces = {
         "lift_fwd_axis": "waverange_tpu/ops/wavelet_pallas.py:129; "
                          "waverange_tpu/ops/wavelet_pallas.py:100",
         "lift_inv_axis": "waverange_tpu/ops/wavelet_pallas.py:204",
         "quant_layer": "waverange_tpu/ops/quant_pallas.py:70",
         "accumulate": "waverange_tpu/ops/quant_pallas.py:118",
+        "rans_hist": f"{rk}:112",
+        "rans_chain": f"{rk}:163; {rk}:277",
+        "rans_compact": f"{rk}:417",
+        "rans_decode": f"{rk}:700",
     }
     source = {"lift_fwd_axis": "waverange_tpu_torch/csrc/lift.cu",
               "lift_inv_axis": "waverange_tpu_torch/csrc/lift.cu",
               "quant_layer": "waverange_tpu_torch/csrc/quant.cu",
-              "accumulate": "waverange_tpu_torch/csrc/quant.cu"}
+              "accumulate": "waverange_tpu_torch/csrc/quant.cu",
+              "rans_hist": "waverange_tpu_torch/csrc/rans.cu",
+              "rans_chain": "waverange_tpu_torch/csrc/rans.cu",
+              "rans_compact": "waverange_tpu_torch/csrc/rans.cu",
+              "rans_decode": "waverange_tpu_torch/csrc/rans.cu"}
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": check.err[k], "ms": times[k][0],

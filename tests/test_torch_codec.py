@@ -1,6 +1,7 @@
 """waverange_tpu_torch.core.codec on the CPU (plain torch path) against the
 native codec (byte-identical streams, bit-identical decode) and the JAX
-device path."""
+device path, with the host entropy coder and with the port's device rANS
+coder (`entropy="device"`)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -134,8 +135,64 @@ def test_port_encode_step_to_jax_decode_step():
     assert jnl == nl
 
 
-@pytest.mark.parametrize("kw", [dict(entropy="device"),
-                                dict(backend="exact64"),
+@pytest.mark.parametrize("shape", [(32, 24, 20), (33, 31, 29)])
+@pytest.mark.parametrize("tol", [1e-16, 1e-10, 1e-7, 1e-3])
+def test_device_entropy_identical_to_native(shape, tol):
+    # exact: the same bytes and the same f64 bits
+    a = smooth_field(shape)
+    e = TC.encode_field(a, tol, coder="rans", entropy="device", device="cpu")
+    assert_same_stream(e, TC.encode_field(a, tol, coder="rans",
+                                          device="cpu"))
+    r = JC.encode_field(a, tol, coder="rans", backend="native")
+    assert_same_stream(e, r)
+    d = TC.decode_field(r, device="cpu", entropy="device")
+    assert d.tobytes() == JC.decode_field(r, backend="native").tobytes()
+
+
+def test_device_entropy_identical_to_jax_device_entropy():
+    a = smooth_field((32, 24, 20))
+    e = TC.encode_field(a, 1e-7, coder="rans", entropy="device", device="cpu")
+    j = JC.encode_field(a, 1e-7, backend="jax", coder="rans",
+                        entropy="device")
+    # the stream; deps_vec only within XLA's FMA envelope, as with host
+    # entropy (test_stream_identical_to_jax)
+    assert e.nlay == j.nlay and e.data == j.data and e.tolabs == j.tolabs
+    assert e.len_enc_vec.tobytes() == j.len_enc_vec.tobytes()
+
+
+def test_device_entropy_decoders_read_each_other():
+    a = smooth_field((24, 20, 16))
+    e = TC.encode_field(a, 1e-9, coder="rans", entropy="device", device="cpu")
+    j = JC.encode_field(a, 1e-9, backend="jax", coder="rans",
+                        entropy="device")
+    # the port's device decoder on the JAX stream, the JAX one on the
+    # port's: each equal to its own host-entropy decode, bit for bit
+    assert (TC.decode_field(j, device="cpu", entropy="device").tobytes()
+            == TC.decode_field(j, device="cpu").tobytes())
+    assert (JC.decode_field(e, backend="jax", entropy="device").tobytes()
+            == JC.decode_field(e, backend="jax").tobytes())
+
+
+def test_device_entropy_trivial_field():
+    a = np.full((8, 8, 8), 3.25)
+    e = TC.encode_field(a, 1e-3, coder="rans", entropy="device", device="cpu")
+    assert e.ntot_enc == 0
+    assert np.array_equal(TC.decode_field(e, device="cpu", entropy="device"),
+                          a)
+
+
+def test_device_entropy_needs_turbo_streams():
+    a = smooth_field((8, 8, 8))
+    with pytest.raises(ValueError, match="coder='rans'"):
+        TC.encode_field(a, 1e-6, entropy="device", device="cpu")
+    e = TC.encode_field(a, 1e-6, device="cpu")  # v1: the range coder
+    with pytest.raises(ValueError, match="turbo"):
+        TC.decode_field(e, device="cpu", entropy="device")
+    with pytest.raises(ValueError, match="unknown entropy"):
+        TC.decode_field(e, device="cpu", entropy="gpu")
+
+
+@pytest.mark.parametrize("kw", [dict(backend="exact64"),
                                 dict(conformance="route"),
                                 dict(mx=2, cutoff=np.array([1e-6, 1e-5]))])
 def test_unported_options_raise(kw):

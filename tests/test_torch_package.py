@@ -11,7 +11,7 @@ import torch
 
 from waverange_tpu_torch.core import codec as TC
 from waverange_tpu_torch.ops import _build
-from waverange_tpu_torch.ops import quant_cuda, wavelet_cuda
+from waverange_tpu_torch.ops import quant_cuda, rans_cuda, wavelet_cuda
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -24,6 +24,9 @@ a = np.fromfunction(lambda k, j, i: np.sin(i / 3.0) * np.cos(j / 5.0) + k,
                     (9, 10, 11))
 e = codec.encode_field(a, 1e-7, device="cpu")
 r = codec.decode_field(e, device="cpu")
+assert np.abs(r - a).max() <= 1.3e-7 * np.abs(a).max()
+e = codec.encode_field(a, 1e-7, device="cpu", coder="rans", entropy="device")
+r = codec.decode_field(e, device="cpu", entropy="device")
 assert np.abs(r - a).max() <= 1.3e-7 * np.abs(a).max()
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("ok")
@@ -74,3 +77,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         quant_cuda.accumulate(torch.zeros((1, 64), dtype=torch.uint8),
                               torch.ones(1, dtype=torch.float64),
                               torch.zeros(1, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("call", [
+    lambda: rans_cuda.rans_hist(torch.zeros((1, 9), dtype=torch.uint8), 9),
+    lambda: rans_cuda.rans_chain(torch.zeros((1, 9), dtype=torch.uint8), 9,
+                                 torch.zeros((1, 256), dtype=torch.int32)),
+    lambda: rans_cuda.rans_compact(
+        torch.zeros((1, 8), dtype=torch.int32),
+        torch.zeros((1, 1 << 15), dtype=torch.int16),
+        torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int64),
+        16),
+    lambda: rans_cuda.rans_decode(torch.zeros(8, dtype=torch.uint8),
+                                  torch.zeros((1, 3), dtype=torch.int64), 1,
+                                  9)],
+    ids=["rans_hist", "rans_chain", "rans_compact", "rans_decode"])
+def test_rans_wrappers_refuse_cpu_tensors(call):
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()

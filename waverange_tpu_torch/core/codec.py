@@ -3,9 +3,12 @@
 Port of the device path of `waverange_tpu.core.codec` (`_encode_jax`,
 `_decode_jax`). The wavelet and the byte-layer quantizer run on the given
 torch device (hand-written CUDA kernels on a GPU, the plain torch versions
-on the CPU); the entropy stage is the shared host C++ coder of
-`waverange_tpu.native`, as in the JAX package (codec.py:285-286,
-:318-319).
+on the CPU). The entropy stage is either the shared host C++ coder of
+`waverange_tpu.native` (`entropy="host"`, codec.py:285-286, :318-319), or,
+for the turbo format v2 (`coder="rans"`), the port's own rANS coder on the
+same device (`entropy="device"`, `ops.rans`, codec.py:278-283, :310-316):
+then the symbol planes never leave the device and only compressed bytes
+cross PCIe.
 
 Streams are `waverange_tpu.core.codec.EncodedField`s, so the native and
 JAX decoders and the CLIs read them. On the f64 path they are byte
@@ -27,6 +30,7 @@ from waverange_tpu.core.codec import (CODER_VERSION, CODER_VERSION_TURBO,
                                       NLAYMAX, WAV_LVL, EncodedField,
                                       coder_id, coder_id_for_version)
 
+from ..ops import rans
 from ..ops.quant import decode_step, encode_step
 
 # f32 quantization floors at a few ulp of 2^-24: below this relative
@@ -74,22 +78,24 @@ def encode_field(fld: np.ndarray, tolrel: float, wtflag: int = 1,
     `precision`: "f64" (reference semantics; f32 input is widened) or
     "native" (keep f32 input in f32; refused under conformance="strict"
     below the f32 floor). `coder`: "range" (reference format) or
-    "rans"/"turbo" (format v2), both through the host coder. `cutoff`,
-    when given, is the uniform cutoff (one value, mx=my=mz=1) and replaces
-    `tolrel`, as in the native codec.
+    "rans"/"turbo" (format v2). `entropy`: "host" (the native C++ coder)
+    or "device" (format v2 only: the port's rANS coder on `device`).
+    `cutoff`, when given, is the uniform cutoff (one value, mx=my=mz=1)
+    and replaces `tolrel`, as in the native codec.
     """
+    cid = coder_id(coder)
+    if entropy == "device" and cid != 1:
+        raise ValueError("entropy='device' requires coder='rans' (the v2 "
+                         "format is the lane-parallel one; the v1 range "
+                         "coder is sequential)")
+    if entropy not in ("host", "device"):
+        raise ValueError(f"unknown entropy stage {entropy!r}")
     if backend == "exact64":
         raise NotImplementedError(
             "backend='exact64' is not ported yet (ROADMAP: port modules, "
             "core/exact64.py)")
     if backend != "torch":
         raise ValueError(f"unknown backend {backend!r}")
-    if entropy == "device":
-        raise NotImplementedError(
-            "entropy='device' is not ported yet (ROADMAP: port modules, "
-            "ops/rans.py, and TPU kernels hist_blocks..dchain)")
-    if entropy != "host":
-        raise ValueError(f"unknown entropy stage {entropy!r}")
     if conformance == "route":
         raise NotImplementedError(
             "conformance='route' is not ported yet (ROADMAP: port modules, "
@@ -107,7 +113,6 @@ def encode_field(fld: np.ndarray, tolrel: float, wtflag: int = 1,
         if cutoff.size != 1:
             raise ValueError("a uniform cutoff holds one value")
         tolrel = float(cutoff[0])
-    cid = coder_id(coder)
     keep_f32 = precision == "native" and fld.dtype == np.float32
     if keep_f32 and conformance == "strict" and tolrel < F32_REL_FLOOR:
         raise ValueError(
@@ -132,8 +137,13 @@ def encode_field(fld: np.ndarray, tolrel: float, wtflag: int = 1,
             len_enc_vec=np.zeros(NLAYMAX, np.uint64), data=b"",
             coder_version=_VERSION_BY_ID[cid])
     nl = int(nlay_f)
-    payload, lens = wn.encode_planes_batch(planes[:nl].cpu().numpy(),
-                                           coder=cid)
+    if entropy == "device":
+        streams = rans.encode_planes_device(planes[:nl], planes.shape[1])
+        payload = b"".join(streams)
+        lens = np.array([len(s) for s in streams], np.uint64)
+    else:
+        payload, lens = wn.encode_planes_batch(planes[:nl].cpu().numpy(),
+                                               coder=cid)
     deps_vec = np.zeros(NLAYMAX)
     minv_vec = np.zeros(NLAYMAX)
     len_vec = np.zeros(NLAYMAX, np.uint64)
@@ -147,20 +157,32 @@ def encode_field(fld: np.ndarray, tolrel: float, wtflag: int = 1,
         data=payload, coder_version=_VERSION_BY_ID[cid])
 
 
-def decode_field(enc: EncodedField, device="cuda") -> np.ndarray:
-    """Decode to an (nz, ny, nx) float64 array: host entropy decode, then
-    the layer accumulate and inverse wavelet on `device`."""
+def decode_field(enc: EncodedField, device="cuda",
+                 entropy: str = "host") -> np.ndarray:
+    """Decode to an (nz, ny, nx) float64 array: the entropy decode (the
+    native host coder, or with `entropy="device"`, for turbo v2 streams
+    only, the port's rANS decoder on `device`, which uploads only the
+    compressed bytes), then the layer accumulate and inverse wavelet on
+    `device`."""
+    cid = coder_id_for_version(enc.coder_version)
+    if entropy == "device" and cid != 1:
+        raise ValueError("entropy='device' requires a turbo (v2) stream")
+    if entropy not in ("host", "device"):
+        raise ValueError(f"unknown entropy stage {entropy!r}")
     dev = _device(device)
     shape = enc.shape_zyx
     if enc.ntot_enc == 0:
         return np.full(shape, enc.midval)
-    cid = coder_id_for_version(enc.coder_version)
     nl = int(enc.nlay)
     n = enc.nx * enc.ny * enc.nz
-    planes = wn.decode_planes_batch(enc.data, enc.len_enc_vec[:nl], n,
-                                    coder=cid)
+    if entropy == "device":
+        planes = rans.decode_planes_device(enc.data, n, device=dev,
+                                           lens=enc.len_enc_vec[:nl])
+    else:
+        planes = torch.from_numpy(wn.decode_planes_batch(
+            enc.data, enc.len_enc_vec[:nl], n, coder=cid)).to(dev)
     out = decode_step(
-        torch.from_numpy(planes).to(dev),
+        planes,
         torch.as_tensor(np.asarray(enc.deps_vec[:nl], np.float64), device=dev),
         torch.as_tensor(np.asarray(enc.minval_vec[:nl], np.float64),
                         device=dev),

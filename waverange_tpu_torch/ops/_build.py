@@ -109,5 +109,17 @@ def load() -> ct.CDLL:
         # planes, deps, minv, nlay, n, out, device, stream
         fn.argtypes = [vp, vp, vp, i32, i64, vp, i32, vp]
         fn.restype = i32
+    for name, args in (
+            # planes, n, nblocks, etab, nsym, device, stream
+            ("wr_rans_hist", [vp, i64, i64, vp, vp, i32, vp]),
+            # planes, n, nblocks, etab, slab, x_fin, nwords, device, stream
+            ("wr_rans_chain", [vp, i64, i64, vp, vp, vp, vp, i32, vp]),
+            # x_fin, slab, nwords, dest, nblocks, out, device, stream
+            ("wr_rans_compact", [vp, vp, vp, vp, i64, vp, i32, vp]),
+            # data, table, n, nblocks, out, device, stream
+            ("wr_rans_decode", [vp, vp, i64, i64, vp, i32, vp])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i32
     _lib = lib
     return lib
