@@ -14,13 +14,16 @@ Phases:
      rANS kernels E-H at sizes 1, 9, 65537 and 200001, on the `steal`,
      `constant` and `uniform` (raw escape) distributions, on multi-plane
      batches and on the 8 real byte planes of the 512^3 field at 1e-16;
-     kernel and plain times at the main path's shapes (512^3 f64);
+     kernel and plain times at the main path's shapes (512^3 f64), and
+     each kernel's bound from the bytes and operations of those inputs;
   3. the main paths, each with the launch counts set to 0 just before it
      and read just after: `encode_field` / `decode_field` on a 512^3 f64
      field at tol 1e-16 and 1e-7, (a) with the host range coder, through
      kernels A-D, byte-identical to the native C++ codec, and (b) with
      `coder="rans", entropy="device"`, through kernels A-H,
-     byte-identical to the native turbo codec; the time split of each;
+     byte-identical to the native turbo codec; the time split of each.
+     The native codec is the port's own copy (`waverange_tpu_torch.
+     native`), built here from the repository's sources;
   4. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where no CUDA device is available or
@@ -41,6 +44,25 @@ LIFT_SHAPES = [(33, 31, 29), (17, 13, 9), (32, 1, 7), (1, 1, 64), (5, 5, 5),
                (64, 64, 64)]
 QUANT_SIZES = [1 << 20, 1_000_003]
 RANS_SIZES = [1, 9, 65537, 200001]
+
+
+# The least time the card could take for a kernel's work (bound_ms): the
+# larger of its bytes (each input read once, each output written once)
+# over the H100 SXM's HBM rate, and its operations over the peak rate for
+# their type. The H100 SXM's datasheet gives 3.35 TB/s and 67 TFLOP/s
+# of f32 outside the tensor cores (128 f32 lanes a SM, an FMA counting
+# 2); an SM has 64 f64 and 64 i32 lanes, hence 33.5 TFLOP/s of f64 and
+# 16.75 T i32 operations/s.
+HBM_BYTES_S = 3.35e12
+F64_OPS_S = 33.5e12
+I32_OPS_S = 16.75e12
+
+
+def bound(nbytes, ops, rate):
+    """(bound_ms, bound_by) of work that moves nbytes and does ops
+    operations of a type whose peak is rate per second."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def log(*a):
@@ -241,6 +263,16 @@ def phase_kernels(card, check):
     check("accumulate", f"{n}^3 f64 8 layers",
           QC.accumulate(planes, deps, minv),
           Q.accumulate_layers_plain(planes, deps, minv))
+    # a sweep of an extent reads and writes it; a lifting sweep does 7 f64
+    # operations an element (4 stages of 3 on half the elements, 1 scale)
+    vol = sum((-(-n // (1 << k))) ** 3 for k in range(4))
+    N = flat.numel()
+    bounds = {"lift_fwd_axis": bound(3 * 16 * vol, 3 * 7 * vol, F64_OPS_S),
+              "lift_inv_axis": bound(3 * 16 * vol, 3 * 7 * vol, F64_OPS_S),
+              # field in, residual and plane out; 8 f64 operations
+              "quant_layer": bound(N * (8 + 8 + 1), 8 * N, F64_OPS_S),
+              # 8 planes in, the f64 field out; a multiply-add a layer
+              "accumulate": bound(N * (8 + 8), 8 * 2 * N, F64_OPS_S)}
     what = {"lift_fwd_axis": "4-level forward transform, 12 sweeps",
             "lift_inv_axis": "4-level inverse transform, 12 sweeps",
             "quant_layer": "one byte layer",
@@ -249,10 +281,11 @@ def phase_kernels(card, check):
         log(f"check {k}: {check.count[k]} comparisons bitwise equal")
     for k, (ms, plain_ms) in times.items():
         log(f"time {k} ({what[k]}, {n}^3 f64): kernel {ms:.3f} ms, plain "
-            f"torch {plain_ms:.3f} ms [{card}]")
+            f"torch {plain_ms:.3f} ms, bound {bounds[k][0]:.3f} ms "
+            f"({bounds[k][1]}) [{card}]")
     del x0, x, flat, plane, planes
     torch.cuda.empty_cache()
-    return times
+    return times, bounds
 
 
 def rans_cases(rng):
@@ -282,7 +315,7 @@ def check_rans(check, planes, n, what):
     inputs on the card, bitwise, and the streams against the native turbo
     coder. Returns the inputs of each kernel for timing."""
     import torch
-    from waverange_tpu import native as wn
+    from waverange_tpu_torch import native as wn
     from waverange_tpu_torch.ops import rans as R
     from waverange_tpu_torch.ops import rans_cuda as RC
 
@@ -364,14 +397,36 @@ def phase_rans(card, check, fld):
             cuda_ms(lambda: R.decode_blocks_plain(a["data"], a["table"], L,
                                                   n), reps=2)),
     }
+    # bytes and operations of this data: F writes each block's words (a
+    # raw block's only up to its slab) and does 8 i32 operations a symbol
+    # (lookup, compare, renormalizing shift, multiply-high, add, shift,
+    # multiply-add, add); G moves the modeled blocks' payloads; H reads the
+    # stream and writes the planes, with 8 operations a modeled symbol.
+    B, N = a["nwords"].numel(), L * n
+    nw = a["nwords"].long()
+    modeled = a["dest"] >= 0
+    tags = a["table"][:, 0]
+    bounds = {
+        "rans_hist": bound(N + B * (1024 + 4), N, I32_OPS_S),
+        "rans_chain": bound(N + B * (1024 + 32 + 4)
+                            + 2 * int(nw.clamp(max=R.SLAB_WORDS).sum()),
+                            8 * N, I32_OPS_S),
+        "rans_compact": bound(2 * int(nw[modeled].sum())
+                              + 32 * int(modeled.sum()) + 12 * B
+                              + 2 * a["total"], 0, I32_OPS_S),
+        "rans_decode": bound(a["data"].numel() + 24 * B + N,
+                             8 * int(torch.tensor(R.plane_bs(L, n)).cuda()[
+                                 tags == 0].sum()), I32_OPS_S),
+    }
     for k in times:
         log(f"check {k}: {check.count[k]} comparisons bitwise equal")
     for k, (ms, plain_ms) in times.items():
         log(f"time {k} ({what}): kernel {ms:.3f} ms, plain torch "
-            f"{plain_ms:.3f} ms [{card}]")
+            f"{plain_ms:.3f} ms, bound {bounds[k][0]:.3f} ms "
+            f"({bounds[k][1]}) [{card}]")
     del planes, a
     torch.cuda.empty_cache()
-    return times
+    return times, bounds
 
 
 def make_field(n, rng):
@@ -410,7 +465,7 @@ PATHS = [
 def split_host(fld, tol):
     """Stage times of the host-entropy path (seconds)."""
     import torch
-    from waverange_tpu import native as wn
+    from waverange_tpu_torch import native as wn
     from waverange_tpu_torch.ops import quant as Q
 
     torch.cuda.synchronize()
@@ -493,7 +548,7 @@ def split_device(fld, tol):
 
 def phase_main(card, fld):
     import torch
-    from waverange_tpu import native as wn
+    from waverange_tpu_torch import native as wn
     from waverange_tpu_torch.core import codec as tc
     from waverange_tpu_torch.ops import quant_cuda as QC
     from waverange_tpu_torch.ops import rans_cuda as RC
@@ -614,12 +669,14 @@ def main():
         f"({_build.lib_path().name})")
 
     check = Checker()
-    times = phase_kernels(card, check)
+    times, bounds = phase_kernels(card, check)
     t0 = time.perf_counter()
     fld = make_field(N_MAIN, np.random.default_rng(SEED))
     log(f"main: {N_MAIN}^3 f64 field ({fld.nbytes / 2**30:.2f} GiB) made "
         f"in {time.perf_counter() - t0:.1f} s")
-    times.update(phase_rans(card, check, fld))
+    rans_times, rans_bounds = phase_rans(card, check, fld)
+    times.update(rans_times)
+    bounds.update(rans_bounds)
     launches, rows = phase_main(card, fld)
 
     rk = "waverange_tpu/ops/rans_kernels.py"
@@ -642,10 +699,13 @@ def main():
               "rans_chain": "waverange_tpu_torch/csrc/rans.cu",
               "rans_compact": "waverange_tpu_torch/csrc/rans.cu",
               "rans_decode": "waverange_tpu_torch/csrc/rans.cu"}
+    # no single PyTorch call computes any of these functions (PERF.md)
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": check.err[k], "ms": times[k][0],
-                "plain_ms": times[k][1]} for k in replaces]
+                "plain_ms": times[k][1], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1], "library_ms": None}
+               for k in replaces]
     log(json.dumps({"card": card, "main_path": rows}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,33 +3,32 @@
 Port of the device path of `waverange_tpu.core.codec` (`_encode_jax`,
 `_decode_jax`). The wavelet and the byte-layer quantizer run on the given
 torch device (hand-written CUDA kernels on a GPU, the plain torch versions
-on the CPU). The entropy stage is either the shared host C++ coder of
-`waverange_tpu.native` (`entropy="host"`, codec.py:285-286, :318-319), or,
-for the turbo format v2 (`coder="rans"`), the port's own rANS coder on the
-same device (`entropy="device"`, `ops.rans`, codec.py:278-283, :310-316):
-then the symbol planes never leave the device and only compressed bytes
-cross PCIe.
+on the CPU). The entropy stage is either the port's copy of the host C++
+coder (`waverange_tpu_torch.native`, `entropy="host"`; codec.py:285-286,
+:318-319 of the reference), or, for the turbo format v2 (`coder="rans"`),
+the port's own rANS coder on the same device (`entropy="device"`,
+`ops.rans`, codec.py:278-283, :310-316): then the symbol planes never
+leave the device and only compressed bytes cross PCIe.
 
-Streams are `waverange_tpu.core.codec.EncodedField`s, so the native and
-JAX decoders and the CLIs read them. On the f64 path they are byte
-identical to `backend="native"` at every tolerance, 1e-16 included, and
-decode is bit identical to the native decoder.
+Streams are `EncodedField` records with the fields and values of
+`waverange_tpu.core.codec.EncodedField`, so the native and JAX decoders
+and the CLIs read them, and `decode_field` reads a record of either
+package by its fields. On the f64 path they are byte identical to
+`backend="native"` at every tolerance, 1e-16 included, and decode is bit
+identical to the native decoder.
 
 There is no implicit device: the default is "cuda", which fails where no
 CUDA device is available.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from waverange_tpu import native as wn
-from waverange_tpu.core.codec import (CODER_VERSION, CODER_VERSION_TURBO,
-                                      NLAYMAX, WAV_LVL, EncodedField,
-                                      coder_id, coder_id_for_version)
-
+from .. import native as wn
 from ..ops import rans
 from ..ops.quant import decode_step, encode_step
 
@@ -38,7 +37,52 @@ from ..ops.quant import decode_step, encode_step
 # (waverange_tpu/core/codec.py:85-118). The f64 path has no floor.
 F32_REL_FLOOR = 1e-6
 
+NLAYMAX = 8
+WAV_LVL = 4
+CODER_VERSION = 31503        # reference-bit-exact range-coder format
+CODER_VERSION_TURBO = 31600  # v2 interleaved-rANS format
+
+_CODER_IDS = {"range": 0, "rans": 1, "turbo": 1}
 _VERSION_BY_ID = {0: CODER_VERSION, 1: CODER_VERSION_TURBO}
+_ID_BY_VERSION = {CODER_VERSION: 0, CODER_VERSION_TURBO: 1}
+
+
+def coder_id(coder) -> int:
+    """Resolve a coder name ("range" | "rans"/"turbo") or id to 0/1."""
+    if isinstance(coder, str):
+        return _CODER_IDS[coder]
+    return int(coder)
+
+
+def coder_id_for_version(version: int) -> int:
+    if version not in _ID_BY_VERSION:
+        raise ValueError(f"unsupported coder version {version}")
+    return _ID_BY_VERSION[version]
+
+
+@dataclass
+class EncodedField:
+    """Codec metadata + payload for one field (the reference's per-field
+    header record, gen_aux.cpp:505-556; the same fields as
+    `waverange_tpu.core.codec.EncodedField`)."""
+    nx: int
+    ny: int
+    nz: int
+    tolabs: float
+    midval: float
+    halfspanval: float
+    wlev: int
+    nlay: int
+    ntot_enc: int
+    deps_vec: np.ndarray       # (8,) f64
+    minval_vec: np.ndarray     # (8,) f64
+    len_enc_vec: np.ndarray    # (8,) u64
+    data: bytes = b""
+    coder_version: int = CODER_VERSION
+
+    @property
+    def shape_zyx(self) -> Tuple[int, int, int]:
+        return (self.nz, self.ny, self.nx)
 
 
 def _device(device) -> torch.device:

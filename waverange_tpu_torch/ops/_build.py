@@ -116,8 +116,8 @@ def load() -> ct.CDLL:
             ("wr_rans_chain", [vp, i64, i64, vp, vp, vp, vp, i32, vp]),
             # x_fin, slab, nwords, dest, nblocks, out, device, stream
             ("wr_rans_compact", [vp, vp, vp, vp, i64, vp, i32, vp]),
-            # data, table, n, nblocks, out, device, stream
-            ("wr_rans_decode", [vp, vp, i64, i64, vp, i32, vp])):
+            # data, data_len, table, n, nblocks, out, device, stream
+            ("wr_rans_decode", [vp, i64, vp, i64, i64, vp, i32, vp])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i32

@@ -2,7 +2,7 @@
 
 Port of `waverange_tpu.ops.rans` (`encode_planes_device`,
 `decode_planes_device`). The format oracle is the C++ turbo coder of
-`waverange_tpu.native` (wr_native.cc `turbo::encode_plane_t`,
+`waverange_tpu_torch.native` (wr_native.cc `turbo::encode_plane_t`,
 `turbo::decode_plane_t`): streams made here are byte-identical to it.
 
 Format v2, one stream per byte plane: the plane is cut into blocks of
@@ -111,6 +111,57 @@ def block_layout(bs: np.ndarray, nsym: np.ndarray, nwords: np.ndarray):
     tags = np.where(nsym <= 1, 2, np.where(2 * wl + _HEADER >= bs, 1, 0))
     wl = np.where(tags == 0, wl, 0)
     return tags, wl, np.where(tags == 0, np.cumsum(wl) - wl, -1)
+
+
+# ----------------------------------------------------------------------------
+# The step arithmetic of kernels F and H (csrc/rans.cu), in numpy, so that
+# the CPU tests hold it against `//` and the binary search.
+# ----------------------------------------------------------------------------
+BUCKET_BITS = 10  # H's slot -> symbol table: 1024 buckets of 16 slots
+
+
+def div_magic(f: np.ndarray):
+    """Kernel F's reciprocal of each frequency 1 <= f <= 16384: (m, l)
+    with l = ceil(log2 f) and m = ceil(2^(32+l) / f) - 2^32, both
+    uint64 arrays; `div_by_magic` divides with them."""
+    f = np.asarray(f, np.uint64)
+    l = np.zeros_like(f)
+    while (big := (np.uint64(1) << l) < f).any():  # ceil(log2 f)
+        l += big
+    m = ((np.uint64(1) << (l + np.uint64(32))) + f - np.uint64(1)) // f
+    return m - np.uint64(1 << 32), l
+
+
+def div_by_magic(x: np.ndarray, m: np.ndarray, l: np.ndarray) -> np.ndarray:
+    """x // f for u32 x, as kernel F computes it: (x + umulhi(x, m)) >> l
+    with a 33-bit sum."""
+    x = np.asarray(x, np.uint64)
+    return (x + ((x * m) >> np.uint64(32))) >> l
+
+
+def bucket_table(freqs: np.ndarray) -> np.ndarray:
+    """Kernel H's (B, 1024) uint8 slot table of (B, 256) model
+    frequencies summing to 16384: bucket k holds the symbol that owns slot
+    16k (cum <= 16k < cum + f)."""
+    freqs = np.asarray(freqs, np.int64)
+    ends = np.cumsum(freqs, 1)
+    starts = np.arange(1 << BUCKET_BITS) << (PROB_BITS - BUCKET_BITS)
+    return np.stack([np.searchsorted(e, starts, side="right")
+                     for e in ends]).astype(np.uint8)
+
+
+def bucket_lookup(freqs: np.ndarray, lut: np.ndarray,
+                  slot: np.ndarray) -> np.ndarray:
+    """The symbol of each slot (B, k) as kernel H finds it: the bucket's
+    symbol, then forward while the symbol's range ends at or below the
+    slot."""
+    freqs = np.asarray(freqs, np.int64)
+    ends = np.cumsum(freqs, 1)
+    rows = np.arange(freqs.shape[0])[:, None]
+    s = lut[rows, slot >> (PROB_BITS - BUCKET_BITS)].astype(np.int64)
+    while (past := ends[rows, s] <= slot).any():
+        s += past
+    return s
 
 
 # ----------------------------------------------------------------------------

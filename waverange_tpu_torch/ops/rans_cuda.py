@@ -34,6 +34,14 @@ def _planes(name: str, planes: torch.Tensor, n: int) -> int:
     return planes.shape[0] * num_blocks(n)
 
 
+def _aligned(name: str, t: torch.Tensor) -> None:
+    # kernels F and H stage rows with 16-byte copies from aligned addresses
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor (a "
+                         "fresh or .clone()d one), got address "
+                         f"{t.data_ptr():#x}")
+
+
 def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -58,6 +66,7 @@ def rans_chain(planes: torch.Tensor, n: int, etab: torch.Tensor):
     order; the words before them are undefined), x_fin (L*nb, 8) int32,
     nwords (L*nb,) int32."""
     B = _planes("rans_chain", planes, n)
+    _aligned("rans_chain", planes)
     _check("rans_chain", etab, planes.device, torch.int32, (B, 256))
     slab = torch.empty((B, SLAB_WORDS), dtype=torch.int16,
                        device=planes.device)
@@ -106,9 +115,10 @@ def rans_decode(data: torch.Tensor, table: torch.Tensor, L: int,
     B = L * num_blocks(n)
     _check("rans_decode", data, data.device, torch.uint8, (data.numel(),))
     _check("rans_decode", table, data.device, torch.int64, (B, 3))
+    _aligned("rans_decode", data)
     out = torch.empty((L, n), dtype=torch.uint8, device=data.device)
     _raise_on("rans_decode", _build.load().wr_rans_decode(
-        data.data_ptr(), table.data_ptr(), n, B, out.data_ptr(),
-        data.device.index, _stream(data)))
+        data.data_ptr(), data.numel(), table.data_ptr(), n, B,
+        out.data_ptr(), data.device.index, _stream(data)))
     LAUNCHES["rans_decode"] += 1
     return out
