@@ -10,7 +10,11 @@ Phases:
   1. environment: the card's name and power limit, the torch, CUDA and
      nvcc versions; builds the CUDA kernels (timed);
   2. every kernel against its plain torch version, bitwise: the wavelet
-     and quantizer kernels A-D in f64 and f32 at odd and even shapes, the
+     and quantizer kernels A-D in f64 and f32 at odd and even shapes (A
+     and B per axis, per level with x and y fused, and as whole
+     transforms, on shapes that cross tile edges in every direction and
+     on a line of 60,001 values), the measured `copy_` rate of a 1 GiB
+     tensor as the card's practical ceiling, the
      rANS kernels E-H at sizes 1, 9, 65537 and 200001, on the `steal`,
      `constant` and `uniform` (raw escape) distributions, on multi-plane
      batches and on the 8 real byte planes of the 512^3 field at 1e-16;
@@ -41,7 +45,8 @@ SEED = 0
 N_MAIN = 512
 TOLS = (1e-16, 1e-7)
 LIFT_SHAPES = [(33, 31, 29), (17, 13, 9), (32, 1, 7), (1, 1, 64), (5, 5, 5),
-               (64, 64, 64)]
+               (64, 64, 64), (70, 150, 300), (130, 67, 259), (2, 2, 2),
+               (3, 3, 3), (1, 2, 60001), (70000, 2, 2), (2100001, 1, 2)]
 QUANT_SIZES = [1 << 20, 1_000_003]
 RANS_SIZES = [1, 9, 65537, 200001]
 
@@ -142,11 +147,29 @@ def phase_kernels(card, check):
                         plain(b, ext, axis)
                         check(name, f"{shape} {dtype} level {lvl} axis "
                               f"{axis}", a, b)
+                # one level, x and y fused, against the plain sweeps
+                for name, level, plain in (
+                        ("lift_fwd_axis", W.lift_fwd_level,
+                         W.lift_fwd_level_plain),
+                        ("lift_inv_axis", W.lift_inv_level,
+                         W.lift_inv_level_plain)):
+                    a, b = x.clone(), x.clone()
+                    level(a, ext)
+                    plain(b, ext)
+                    check(name, f"{shape} {dtype} level {lvl} fused", a, b)
                 # whole transforms: kernels on the card vs the plain path
                 # on the CPU
                 w = W.cdf97_forward(x.clone(), lvl)
+                want = W.cdf97_forward(x.cpu(), lvl)
                 check("lift_fwd_axis", f"{shape} {dtype} forward {lvl}",
-                      w.cpu(), W.cdf97_forward(x.cpu(), lvl))
+                      w.cpu(), want)
+                # out of place: the source stays as it was
+                src = x.clone()
+                w2 = W.cdf97_forward(src, lvl, out=torch.empty_like(x))
+                check("lift_fwd_axis", f"{shape} {dtype} forward {lvl} out "
+                      "of place", w2.cpu(), want)
+                check("lift_fwd_axis", f"{shape} {dtype} forward {lvl} "
+                      "source unchanged", src, x)
                 r = W.cdf97_inverse(w.clone(), lvl)
                 check("lift_inv_axis", f"{shape} {dtype} inverse {lvl}",
                       r.cpu(), W.cdf97_inverse(w.cpu(), lvl))
@@ -197,32 +220,40 @@ def phase_kernels(card, check):
     n = N_MAIN
     x0 = torch.from_numpy(rng.standard_normal((n, n, n))).cuda()
     x = torch.empty_like(x0)
+    scratch = torch.empty_like(x0)
 
     def reset():
         x.copy_(x0)
 
-    def fwd(lift):
+    copy_ms = cuda_ms(reset)
+    log(f"copy_ of a {x.numel() * 8 / 2**30:.2f} GiB tensor: {copy_ms:.3f} "
+        f"ms, {2 * x.numel() * 8 / copy_ms / 1e9:.3f} TB/s read and write: "
+        f"the card's practical ceiling [{card}]")
+    exts = [tuple(-(-s // (1 << k)) for s in x.shape) for k in range(4)]
+
+    # the kernels level by level between x and the scratch tensor, as the
+    # main path runs them; the plain version as three sweeps a level
+    def fwd(level):
         def run():
-            az, ay, ax = x.shape
-            for _ in range(4):
-                for axis in (2, 1, 0):
-                    lift(x, (az, ay, ax), axis)
-                az, ay, ax = (-(-az // 2), -(-ay // 2), -(-ax // 2))
+            for ext in exts:
+                level(x, ext)
         return run
 
-    def inv(lift):
+    def inv(level):
         def run():
-            for k in range(4, 0, -1):
-                ext = tuple(-(-s // (1 << (k - 1))) for s in x.shape)
-                for axis in (0, 1, 2):
-                    lift(x, ext, axis)
+            for ext in reversed(exts):
+                level(x, ext)
         return run
 
     # Time, then compare once from the same start, at the main path's
     # shapes.
     for name, sched, kern, plain in (
-            ("lift_fwd_axis", fwd, WC.lift_fwd_axis, W.lift_fwd_axis_plain),
-            ("lift_inv_axis", inv, WC.lift_inv_axis, W.lift_inv_axis_plain)):
+            ("lift_fwd_axis", fwd,
+             lambda t, ext: W.lift_fwd_level(t, ext, scratch),
+             W.lift_fwd_level_plain),
+            ("lift_inv_axis", inv,
+             lambda t, ext: W.lift_inv_level(t, ext, scratch),
+             W.lift_inv_level_plain)):
         times[name] = (cuda_ms(sched(kern), reset),
                        cuda_ms(sched(plain), reset))
         reset()
@@ -232,6 +263,7 @@ def phase_kernels(card, check):
         sched(plain)()
         check(name, f"{n}^3 f64 4-level transform", got, x)
         del got
+    del scratch
     flat = x.view(-1)
     mn, mx = torch.aminmax(x0)
     d = (mx - mn) / torch.tensor(255.0, dtype=x.dtype, device="cuda")
@@ -263,18 +295,27 @@ def phase_kernels(card, check):
     check("accumulate", f"{n}^3 f64 8 layers",
           QC.accumulate(planes, deps, minv),
           Q.accumulate_layers_plain(planes, deps, minv))
-    # a sweep of an extent reads and writes it; a lifting sweep does 7 f64
-    # operations an element (4 stages of 3 on half the elements, 1 scale)
+    # a transform reads the field once and writes it once; a lifting sweep
+    # does 7 f64 operations an element (4 stages of 3 on half the elements,
+    # 1 scale), three sweeps a level
     vol = sum((-(-n // (1 << k))) ** 3 for k in range(4))
     N = flat.numel()
-    bounds = {"lift_fwd_axis": bound(3 * 16 * vol, 3 * 7 * vol, F64_OPS_S),
-              "lift_inv_axis": bound(3 * 16 * vol, 3 * 7 * vol, F64_OPS_S),
+    # what the chosen passes move, halo included: computed, so it goes on
+    # the time lines only
+    design = {
+        name: sum(WC.pass_bytes(ext, axes, 8, inverse) for ext in exts
+                  for axes in W.level_passes(ext, inverse))
+        / HBM_BYTES_S * 1e3
+        for name, inverse in (("lift_fwd_axis", False),
+                              ("lift_inv_axis", True))}
+    bounds = {"lift_fwd_axis": bound(2 * 8 * N, 3 * 7 * vol, F64_OPS_S),
+              "lift_inv_axis": bound(2 * 8 * N, 3 * 7 * vol, F64_OPS_S),
               # field in, residual and plane out; 8 f64 operations
               "quant_layer": bound(N * (8 + 8 + 1), 8 * N, F64_OPS_S),
               # 8 planes in, the f64 field out; a multiply-add a layer
               "accumulate": bound(N * (8 + 8), 8 * 2 * N, F64_OPS_S)}
-    what = {"lift_fwd_axis": "4-level forward transform, 12 sweeps",
-            "lift_inv_axis": "4-level inverse transform, 12 sweeps",
+    what = {"lift_fwd_axis": "4-level forward transform, 8 passes",
+            "lift_inv_axis": "4-level inverse transform, 8 passes",
             "quant_layer": "one byte layer",
             "accumulate": "8-layer accumulate"}
     for k in check.count:
@@ -282,7 +323,9 @@ def phase_kernels(card, check):
     for k, (ms, plain_ms) in times.items():
         log(f"time {k} ({what[k]}, {n}^3 f64): kernel {ms:.3f} ms, plain "
             f"torch {plain_ms:.3f} ms, bound {bounds[k][0]:.3f} ms "
-            f"({bounds[k][1]}) [{card}]")
+            f"({bounds[k][1]})"
+            + (f", design {design[k]:.3f} ms" if k in design else "")
+            + f" [{card}]")
     del x0, x, flat, plane, planes
     torch.cuda.empty_cache()
     return times, bounds

@@ -95,12 +95,12 @@ def load() -> ct.CDLL:
     lib = ct.CDLL(str(ensure_built()))
     vp, i64, i32 = ct.c_void_p, ct.c_longlong, ct.c_int
     for sfx in ("f64", "f32"):
-        for name in ("wr_lift_fwd", "wr_lift_inv"):
-            fn = getattr(lib, f"{name}_{sfx}")
-            # x, nz, ny, nx, az, ay, ax, axis, consts, device, stream
-            fn.argtypes = [vp, i64, i64, i64, i64, i64, i64, i32, vp, i32,
-                           vp]
-            fn.restype = i32
+        fn = getattr(lib, f"wr_lift_pass_{sfx}")
+        # inverse, src, dst, s_sz, s_sy, d_sz, d_sy, az, ay, ax, axes,
+        # consts, device, stream
+        fn.argtypes = [i32, vp, vp, i64, i64, i64, i64, i64, i64, i64, i32,
+                       vp, i32, vp]
+        fn.restype = i32
         fn = getattr(lib, f"wr_quant_layer_{sfx}")
         # params, fld, plane, pmin, pmax, n, nblocks, device, stream
         fn.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, vp]

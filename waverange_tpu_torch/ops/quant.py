@@ -143,7 +143,9 @@ def encode_step(fld: torch.Tensor, tolrel: float, wtflag: bool = True,
     tiny = 2 * (DBL_MIN if fld.dtype == torch.float64 else FLT_MIN)
     trivial = halfspanval <= tiny
 
-    w = cdf97_forward(fld.clone(), levels if wtflag else 0)
+    w = cdf97_forward(fld, levels if wtflag else 0,
+                      out=torch.empty_like(
+                          fld, memory_format=torch.contiguous_format))
     wav_acc = torch.tensor(WAV_ACC_COEF, dtype=torch.float64, device=dev)
     tolabs = tolrel * torch.maximum(mn64.abs(), mx64.abs()) / wav_acc
     planes, deps, minv, nlay = quantize_layers(w.view(-1),
