@@ -17,15 +17,20 @@ Phases:
      tensor as the card's practical ceiling, the
      rANS kernels E-H at sizes 1, 9, 65537 and 200001, on the `steal`,
      `constant` and `uniform` (raw escape) distributions, on multi-plane
-     batches and on the 8 real byte planes of the 512^3 field at 1e-16;
-     kernel and plain times at the main path's shapes (512^3 f64), and
-     each kernel's bound from the bytes and operations of those inputs;
+     batches, on rows that start off a 16-byte boundary and blocks of 5
+     and 13 bytes, and on the 8 real byte planes of the 512^3 field at
+     1e-16 (E also on planes at an odd address); kernel and plain device
+     times at the main path's shapes (512^3 f64), each kernel's bound
+     from the bytes and operations of those inputs, and E's time on the
+     planes at 1e-7 and on 8 constant and 8 uniform planes;
   3. the main paths, each with the launch counts set to 0 just before it
      and read just after: `encode_field` / `decode_field` on a 512^3 f64
      field at tol 1e-16 and 1e-7, (a) with the host range coder, through
      kernels A-D, byte-identical to the native C++ codec, and (b) with
      `coder="rans", entropy="device"`, through kernels A-H,
-     byte-identical to the native turbo codec; the time split of each.
+     byte-identical to the native turbo codec; the time split of each,
+     with the device-entropy encode split into E, F, the layout sync, G
+     and the raw-block gather.
      The native codec is the port's own copy (`waverange_tpu_torch.
      native`), built here from the repository's sources;
   4. the last line: {"ok": true, "device": {...}}.
@@ -49,6 +54,7 @@ LIFT_SHAPES = [(33, 31, 29), (17, 13, 9), (32, 1, 7), (1, 1, 64), (5, 5, 5),
                (3, 3, 3), (1, 2, 60001), (70000, 2, 2), (2100001, 1, 2)]
 QUANT_SIZES = [1 << 20, 1_000_003]
 RANS_SIZES = [1, 9, 65537, 200001]
+FLAT_N = 1 << 27  # E is also timed on 8 constant and 8 uniform planes
 
 
 # The least time the card could take for a kernel's work (bound_ms): the
@@ -76,12 +82,15 @@ def log(*a):
 
 def cuda_ms(fn, setup=None, reps=5):
     """Median device time of fn() in ms (CUDA events), after one warm-up;
-    `setup` runs before each call, outside the timed region."""
+    `setup` runs before each call, outside the timed region. The card is
+    kept busy (about 1 ms) while the host enqueues fn's launches, so that
+    their host-side cost is not timed where the card would wait for it."""
     import torch
     times = []
     for r in range(reps + 1):
         if setup is not None:
             setup()
+        torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -351,6 +360,13 @@ def rans_cases(rng):
                       rng.integers(0, 4, 70001), np.full(70001, 9),
                       rng.integers(0, 256, 70001)]).astype(np.uint8)
     yield "4-plane batch", mixed
+    # rows that start off a 16-byte boundary, and blocks shorter than 16
+    # bytes: kernel E's byte-wise head and tail
+    yield "3 planes of n=70001", np.clip(rng.normal(100, 25, (3, 70001)),
+                                         0, 255).astype(np.uint8)
+    yield "3 planes of n=65541 (5-byte last blocks)", rng.integers(
+        0, 3, (3, 65541), dtype=np.uint8)
+    yield "2 planes of n=13", rng.integers(0, 256, (2, 13), dtype=np.uint8)
 
 
 def check_rans(check, planes, n, what):
@@ -413,11 +429,24 @@ def phase_rans(card, check, fld):
     rng = np.random.default_rng(SEED)
     for name, p in rans_cases(rng):
         check_rans(check, torch.from_numpy(p).cuda(), p.shape[1], name)
+    # E on planes whose first byte is not 16-byte aligned (F and H refuse
+    # them)
+    p = rng.integers(0, 5, 3 * 70001 + 16, dtype=np.uint8)
+    for off in (1, 7):
+        planes = torch.from_numpy(p).cuda()[off:off + 3 * 70001].view(3, -1)
+        for got, want, what in zip(RC.rans_hist(planes, 70001),
+                                   R.block_models_plain(planes, 70001),
+                                   ("models", "nsym")):
+            check("rans_hist", f"3 planes of n=70001 at address 16k+{off} "
+                  + what, got, want)
     x = torch.from_numpy(fld).cuda()
-    planes, _, _, nlay, *_ = Q.encode_step(x, TOLS[0])
-    nl, n = int(nlay), planes.shape[1]
-    planes = planes[:nl]
-    del x
+    by_tol = {}
+    for tol in TOLS:
+        planes, _, _, nlay, *_ = Q.encode_step(x, tol)
+        by_tol[tol] = planes[:int(nlay)]
+    del x, planes
+    planes = by_tol[TOLS[0]]
+    nl, n = planes.shape
     what = f"{N_MAIN}^3 f64 tol {TOLS[0]:g}, {nl} planes"
     a = check_rans(check, planes, n, what)
     L = nl
@@ -468,6 +497,27 @@ def phase_rans(card, check, fld):
             f"{plain_ms:.3f} ms, bound {bounds[k][0]:.3f} ms "
             f"({bounds[k][1]}) [{card}]")
     del planes, a
+    # E on the planes at 1e-7 and on planes of one symbol and of uniform
+    # bytes: equal symbols must not cost more than scattered ones
+    extra = {f"{N_MAIN}^3 f64 tol {TOLS[1]:g}": by_tol[TOLS[1]],
+             "8 constant planes": torch.full(
+                 (8, FLAT_N), 42, dtype=torch.uint8, device="cuda"),
+             "8 uniform planes": torch.randint(
+                 0, 256, (8, FLAT_N), dtype=torch.uint8, device="cuda",
+                 generator=torch.Generator("cuda").manual_seed(SEED))}
+    del by_tol
+    hist_ms = {}
+    for what, planes in extra.items():
+        L, n = planes.shape
+        B = L * R.num_blocks(n)
+        hist_ms[what] = cuda_ms(lambda: RC.rans_hist(planes, n))
+        bd = bound(L * n + B * (1024 + 4), L * n, I32_OPS_S)
+        log(f"time rans_hist ({what}): kernel {hist_ms[what]:.3f} ms, "
+            f"bound {bd[0]:.3f} ms ({bd[1]}) [{card}]")
+    log("time rans_hist: constant / uniform planes of 2^"
+        f"{FLAT_N.bit_length() - 1}: "
+        f"{hist_ms['8 constant planes'] / hist_ms['8 uniform planes']:.3f}")
+    del extra, planes
     torch.cuda.empty_cache()
     return times, bounds
 
@@ -540,6 +590,25 @@ def split_host(fld, tol):
             "device_decode_s": d[6], "d2h_field_s": d[7]}
 
 
+def encode_blocks_split(planes, n):
+    """`rans.encode_blocks` with the host clock read after each of its
+    steps, after a synchronize: E, F, the sync for the layout, G, the
+    raw-block gather. Returns the EncodedBlocks and the step times
+    (seconds)."""
+    import torch
+    from waverange_tpu_torch.ops import rans as R
+
+    last, times = [time.perf_counter()], {}
+
+    def mark(step):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times[f"enc_{step}_s"] = now - last[0]
+        last[0] = now
+
+    return R.encode_blocks(planes, n, mark), times
+
+
 def split_device(fld, tol):
     """Stage times of the device-entropy path (seconds)."""
     import torch
@@ -555,8 +624,7 @@ def split_device(fld, tol):
     planes, deps, minv, nlay, *_ = Q.encode_step(x, tol)
     nl = int(nlay)
     s.append(time.perf_counter())
-    enc = R.encode_blocks(planes[:nl], n)
-    torch.cuda.synchronize()
+    enc, e = encode_blocks_split(planes[:nl], n)
     s.append(time.perf_counter())
     enc = R.fetch(enc)
     s.append(time.perf_counter())
@@ -582,7 +650,7 @@ def split_device(fld, tol):
     d = np.diff(s)
     del pd, out
     return {"h2d_field_s": d[0], "device_encode_s": d[1],
-            "device_entropy_encode_s": d[2], "d2h_compressed_s": d[3],
+            "device_entropy_encode_s": d[2], **e, "d2h_compressed_s": d[3],
             "host_framing_s": d[4], "host_parse_s": d[5],
             "h2d_compressed_s": d[6], "device_entropy_decode_s": d[7],
             "device_decode_s": d[8], "d2h_field_s": d[9],

@@ -165,6 +165,95 @@ def bucket_lookup(freqs: np.ndarray, lut: np.ndarray,
 
 
 # ----------------------------------------------------------------------------
+# The schedule of kernel E (csrc/rans.cu), in numpy, so that the CPU tests
+# hold its byte partition and its parallel normalization against the plain
+# versions and the C++ order.
+# ----------------------------------------------------------------------------
+HIST_THREADS = 256  # thread t owns bin t; 8 warps
+HIST_UNROLL = 4     # 16-byte pieces in flight per thread
+
+
+def hist_partition(addr: int, bs: int):
+    """Kernel E's cut of a block of bs bytes at address addr: (head,
+    pieces, tail) = the bytes up to the first 16-byte boundary, counted
+    one by one, then whole 16-byte pieces, then the bytes left."""
+    head = min(bs, -addr % 16)
+    pieces = (bs - head) // 16
+    return head, pieces, bs - head - 16 * pieces
+
+
+def hist_reads(addr0: int, L: int, n: int) -> np.ndarray:
+    """Every read kernel E makes of (L, n) planes whose first byte lies at
+    address addr0: (k, 3) int64 rows (block, offset from the first byte,
+    width): the head and tail bytes (width 1), then the 16-byte pieces of
+    every thread's rounds (width 16)."""
+    nb = num_blocks(n)
+    bs = plane_bs(L, n)
+    t = np.arange(HIST_THREADS)
+    rows = []
+    for b in range(L * nb):
+        start = (b // nb) * n + (b % nb) * TBLOCK
+        head, pieces, tail = hist_partition(addr0 + start, int(bs[b]))
+        ones = np.concatenate([t[t < head], head + 16 * pieces + t[t < tail]])
+        # thread t's pieces: t + HIST_THREADS * (HIST_UNROLL * j + u)
+        k = np.arange(0, pieces, HIST_THREADS * HIST_UNROLL)[:, None] \
+            + HIST_THREADS * np.arange(HIST_UNROLL)[None, :]
+        k = (t[:, None, None] + k[None]).reshape(-1)
+        k = k[k < pieces]
+        rows += [np.stack([np.full(ones.size, b), start + ones,
+                           np.ones_like(ones)], 1),
+                 np.stack([np.full(k.size, b), start + head + 16 * k,
+                           np.full(k.size, 16)], 1)]
+    return np.concatenate(rows).astype(np.int64)
+
+
+def histogram_reads_plain(planes: np.ndarray, reads: np.ndarray) -> np.ndarray:
+    """(B, 256) int64 counts of the bytes that `reads` (of `hist_reads`)
+    take from the flat (L, n) uint8 planes."""
+    flat = np.ascontiguousarray(planes).reshape(-1)
+    B = int(reads[:, 0].max()) + 1 if reads.size else 0
+    idx = reads[:, 1:2] + np.arange(16)[None, :]
+    keep = np.arange(16)[None, :] < reads[:, 2:3]
+    blk = np.broadcast_to(reads[:, :1], idx.shape)[keep]
+    sym = flat[idx[keep]].astype(np.int64)
+    return np.bincount(blk * 256 + sym, minlength=B * 256).reshape(B, 256)
+
+
+def normalize_keyed(counts: np.ndarray, bs: np.ndarray):
+    """Kernel E's normalization of (B, 256) counts, one thread a bin: each
+    of wr_native.cc:563-589's serial scans is a block reduction. The sum
+    of f; "the first index among the maxima" of the counts (the deficit)
+    and of the frequencies > 1 (each steal) is the maximum of the key
+    (value << 8) | (255 - i); cum is a shuffle scan in each warp of 32
+    bins plus the warps' exclusive totals. Returns (freqs, cum), int64."""
+    c = np.asarray(counts, np.int64)
+    B = c.shape[0]
+    i = np.arange(256)
+    rows = np.arange(B)
+    f = np.where(c > 0, np.maximum(c * PROB_SCALE // np.asarray(
+        bs, np.int64)[:, None], 1), 0)
+    total = f.sum(1)
+    key = np.where(c > 0, (c << 8) | (255 - i), 0).max(1)
+    short = total < PROB_SCALE
+    f[rows[short], 255 - (key[short] & 255)] += PROB_SCALE - total[short]
+    while (over := total > PROB_SCALE).any():
+        m = np.where(f > 1, (f << 8) | (255 - i), 0).max(1)
+        take = np.where(over, np.minimum((m >> 8) - 1, total - PROB_SCALE),
+                        0)
+        f[rows, 255 - (m & 255)] -= take
+        total -= take
+    x = f.reshape(B, HIST_THREADS // 32, 32)
+    for d in (1, 2, 4, 8, 16):  # lane l adds lane l - d's partial sum
+        y = np.zeros_like(x)
+        y[..., d:] = x[..., :-d]
+        x = x + y
+    warp_tot = x[..., 31]
+    cum = (x + (np.cumsum(warp_tot, 1) - warp_tot)[..., None]).reshape(
+        B, 256) - f
+    return f, cum
+
+
+# ----------------------------------------------------------------------------
 # Plain versions (the CPU path, and the card's reference).
 # ----------------------------------------------------------------------------
 def histogram_plain(planes: torch.Tensor, n: int) -> torch.Tensor:
@@ -437,23 +526,31 @@ def encode_planes_device(planes: torch.Tensor, n: int) -> list[bytes]:
     return frame(fetch(encode_blocks(planes.contiguous(), n)))
 
 
-def encode_blocks(planes: torch.Tensor, n: int) -> EncodedBlocks:
+def encode_blocks(planes: torch.Tensor, n: int, mark=None) -> EncodedBlocks:
     """The device stage of the encode of non-empty contiguous (L, n)
-    planes: E, F, the one host sync for the data-dependent layout, G."""
+    planes: E, F, the one host sync for the data-dependent layout, G, and
+    the gather of the raw blocks' bytes. `mark`, if given, is called with
+    each step's name as it ends (a timer's hook)."""
+    mark = mark or (lambda step: None)
     L = planes.shape[0]
     dev = planes.device
     etab, nsym = block_models(planes, n)
+    mark("hist")
     slab, x_fin, nwords = encode_chain(planes, n, etab)
+    mark("chain")
     nsym_h, nwords_h = torch.stack([nsym, nwords]).cpu().numpy()
     bs = plane_bs(L, n)
     tags, wl, dest = block_layout(bs, nsym_h, nwords_h)
+    mark("layout_sync")
     payload = compact(x_fin, slab, nwords, torch.from_numpy(dest).to(dev),
                       int(wl.sum()))
+    mark("compact")
     del slab
     nb = num_blocks(n)
     raw = torch.cat([planes[b // nb, (b % nb) * TBLOCK:][:bs[b]]
                      for b in np.nonzero(tags == 1)[0]]
                     or [planes.new_empty(0)])
+    mark("raw_gather")
     freqs = (etab & 0xFFFF).to(torch.int16)  # <= 16384: exact
     return EncodedBlocks(L, n, tags, wl, dest, freqs, payload, raw)
 
