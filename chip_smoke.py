@@ -33,22 +33,45 @@ Phases:
      and the raw-block gather.
      The native codec is the port's own copy (`waverange_tpu_torch.
      native`), built here from the repository's sources;
-  4. the last line: {"ok": true, "device": {...}}.
+  4. the entry points, each row with the launch counts set to 0 just
+     before it and read just after, byte for byte against the native copy
+     on the phase-3 field: `backend="exact64"` at 1e-16 on both entropy
+     stages (against phase 3's native records), `precision="native"` on
+     the field cast to f32 at 1e-5 with device rANS (against
+     `native.encode_field_f32` with the turbo coder),
+     `conformance="route"` at f32 1e-9 (the native f64 stream of the same
+     f32 values), the generic `wrenc`/`wrdec` through `main(argv)` on a
+     raw file of the field in f64 and in f32 (1.5 GiB), with the defaults
+     (torch on cuda) and with WR_BACKEND=native, the MSSG
+     `wrmssgenc`/`wrmssgdec` on a 256^3 GrADS file with masked points
+     (the mask separation and the wtflag=0 mask field), the same way, and
+     the rANS encode of a plane view that starts off a 16-byte boundary
+     against the native turbo coder; with the wall times of each. No
+     FluSI row: the card's machine has no h5py (the CPU tests hold FluSI);
+  5. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where no CUDA device is available or
 outside the repository. No failure is caught.
 """
+import contextlib
+import filecmp
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
 SEED = 0
 N_MAIN = 512
 TOLS = (1e-16, 1e-7)
+CLI_TOL = "1e-7"        # the generic and MSSG CLI rows
+F32_TOL = 1e-5          # the f32 row
+ROUTE_TOL = 1e-9        # the route row: below the f32 floor
 LIFT_SHAPES = [(33, 31, 29), (17, 13, 9), (32, 1, 7), (1, 1, 64), (5, 5, 5),
                (64, 64, 64), (70, 150, 300), (130, 67, 259), (2, 2, 2),
                (3, 3, 3), (1, 2, 60001), (70000, 2, 2), (2100001, 1, 2)]
@@ -522,6 +545,51 @@ def phase_rans(card, check, fld):
     return times, bounds
 
 
+class Launches:
+    """The kernels' launch counts on the main paths: each path or row runs
+    with the wrappers' counts set to 0 just before it and read just after,
+    must launch the kernels it names, and adds its counts to `total`."""
+
+    def __init__(self):
+        from waverange_tpu_torch.ops import quant_cuda as QC
+        from waverange_tpu_torch.ops import rans_cuda as RC
+        from waverange_tpu_torch.ops import wavelet_cuda as WC
+        self.counters = (WC.LAUNCHES, QC.LAUNCHES, RC.LAUNCHES)
+        self.total = {k: 0 for c in self.counters for k in c}
+
+    @contextlib.contextmanager
+    def row(self, name, needed):
+        for c in self.counters:
+            for k in c:
+                c[k] = 0
+        yield
+        grown = {k: v for c in self.counters for k, v in c.items()}
+        missed = [k for k in needed if grown[k] < 1]
+        if missed:
+            raise AssertionError(f"{name} missed kernels {missed}: "
+                                 f"launches {grown}")
+        for k, v in grown.items():
+            self.total[k] += v
+        log(f"{name}: kernel launches: {grown}")
+
+
+
+def check_record(what, enc, nat):
+    """An `EncodedField` against a native record (dict), field by field."""
+    same = {
+        "data": enc.data == nat["data"],
+        "nlay": enc.nlay == nat["nlay"],
+        "wlev": enc.wlev == nat["wlev"],
+        "ntot_enc": enc.ntot_enc == nat["ntot_enc"],
+        **{k: getattr(enc, k).tobytes() == nat[k].tobytes()
+           for k in ("deps_vec", "minval_vec", "len_enc_vec")},
+        **{k: getattr(enc, k) == nat[k]
+           for k in ("tolabs", "midval", "halfspanval")}}
+    if not all(same.values()):
+        raise AssertionError(f"{what}: port differs from the native codec: "
+                             f"{same}")
+
+
 def make_field(n, rng):
     """The bench's CFD-like field (bench.py make_field): a smooth
     trigonometric base, coarse noise at 1/8 resolution and fine noise,
@@ -543,15 +611,16 @@ def make_field(n, rng):
     return out
 
 
+A_TO_D = ("lift_fwd_axis", "lift_inv_axis", "quant_layer", "accumulate")
+E_TO_G = ("rans_hist", "rans_chain", "rans_compact")
+A_TO_H = A_TO_D + E_TO_G + ("rans_decode",)
+
 # The two main paths: (name, encode_field and decode_field keywords, native
 # coder id, kernels the path must launch).
 PATHS = [
-    ("host range coder", {}, {}, 0,
-     ("lift_fwd_axis", "lift_inv_axis", "quant_layer", "accumulate")),
+    ("host range coder", {}, {}, 0, A_TO_D),
     ("device rANS", dict(coder="rans", entropy="device"),
-     dict(entropy="device"), 1,
-     ("lift_fwd_axis", "lift_inv_axis", "quant_layer", "accumulate",
-      "rans_hist", "rans_chain", "rans_compact", "rans_decode")),
+     dict(entropy="device"), 1, A_TO_H),
 ]
 
 
@@ -657,41 +726,28 @@ def split_device(fld, tol):
             "compressed_bytes": len(data)}
 
 
-def phase_main(card, fld):
+def phase_main(card, fld, launches):
+    """The two main paths at TOLS; returns the time rows and the native
+    records, decodes and times at TOLS[0] by coder id."""
     import torch
     from waverange_tpu_torch import native as wn
     from waverange_tpu_torch.core import codec as tc
-    from waverange_tpu_torch.ops import quant_cuda as QC
-    from waverange_tpu_torch.ops import rans_cuda as RC
-    from waverange_tpu_torch.ops import wavelet_cuda as WC
 
     gb = fld.nbytes / 1e9
     amax = float(np.abs(fld).max())
     wn.pool_warm(fld.size)
-    counters = (WC.LAUNCHES, QC.LAUNCHES, RC.LAUNCHES)
-    launches = {k: 0 for c in counters for k in c}
-    rows = []
+    rows, natives = [], {}
     for name, enc_kw, dec_kw, cid, needed in PATHS:
         port = {}
-        for c in counters:  # the counts start at 0 just before the path
-            for k in c:
-                c[k] = 0
-        for tol in TOLS:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            enc = tc.encode_field(fld, tol, device="cuda", **enc_kw)
-            t1 = time.perf_counter()
-            dec = tc.decode_field(enc, device="cuda", **dec_kw)
-            t2 = time.perf_counter()
-            port[tol] = (enc, dec, t1 - t0, t2 - t1)
-        grown = {k: v for c in counters for k, v in c.items()}
-        missed = [k for k in needed if grown[k] < 1]
-        if missed:
-            raise AssertionError(f"main path ({name}) missed kernels "
-                                 f"{missed}: launches {grown}")
-        for k, v in grown.items():
-            launches[k] += v
-        log(f"main ({name}): kernel launches on the path: {grown}")
+        with launches.row(f"main ({name})", needed):
+            for tol in TOLS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                enc = tc.encode_field(fld, tol, device="cuda", **enc_kw)
+                t1 = time.perf_counter()
+                dec = tc.decode_field(enc, device="cuda", **dec_kw)
+                t2 = time.perf_counter()
+                port[tol] = (enc, dec, t1 - t0, t2 - t1)
 
         for tol in TOLS:
             enc, dec, t_enc, t_dec = port[tol]
@@ -701,23 +757,12 @@ def phase_main(card, fld):
             t1 = time.perf_counter()
             ndec = wn.decode_field(nat, fld.shape, coder=cid)
             t2 = time.perf_counter()
-            same = {
-                "data": enc.data == nat["data"],
-                "nlay": enc.nlay == nat["nlay"],
-                "deps_vec": (enc.deps_vec.tobytes()
-                             == nat["deps_vec"].tobytes()),
-                "minval_vec": (enc.minval_vec.tobytes()
-                               == nat["minval_vec"].tobytes()),
-                "len_enc_vec": (enc.len_enc_vec.tobytes()
-                                == nat["len_enc_vec"].tobytes()),
-                "tolabs": enc.tolabs == nat["tolabs"],
-                "midval": enc.midval == nat["midval"],
-                "halfspanval": enc.halfspanval == nat["halfspanval"],
-                "decode": dec.tobytes() == ndec.tobytes(),
-            }
-            if not all(same.values()):
-                raise AssertionError(f"{name}, tol {tol:g}: port differs "
-                                     f"from the native codec: {same}")
+            check_record(f"{name}, tol {tol:g}", enc, nat)
+            if dec.tobytes() != ndec.tobytes():
+                raise AssertionError(f"{name}, tol {tol:g}: decode differs "
+                                     "from the native decode")
+            if tol == TOLS[0]:
+                natives[cid] = (nat, ndec, t1 - t0, t2 - t1)
             # the bench's limit (bench.py:712): the error contract, or
             # twice the native decode's error where round-off dominates
             err = float(np.abs(dec - fld).max())
@@ -747,8 +792,228 @@ def phase_main(card, fld):
                 f"{k} {v:.4f}" for k, v in row.items() if k.endswith("_s")
                 or k.endswith("_gbps")))
         del port
-    log(f"main: kernel launches on the main paths: {launches}")
-    return launches, rows
+    return rows, natives
+
+
+@contextlib.contextmanager
+def environ(**env):
+    """Set (a value) or unset (None) environment variables for a block."""
+    saved = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_cli(tools, workdir, backend):
+    """Run each (cli module, argv) of `tools` through its `main(argv)` in
+    `workdir`, with WR_BACKEND=`backend` (None: the default, torch) and no
+    WR_DEVICE (the default, cuda); returns the wall time of each."""
+    import torch
+    times = []
+    old = os.getcwd()
+    os.chdir(workdir)
+    try:
+        with environ(WR_BACKEND=backend, WR_DEVICE=None, WR_CODER=None,
+                     WR_CONFORMANCE=None):
+            for mod, argv in tools:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mod.main(argv) != 0:
+                    raise AssertionError(f"{mod.__name__} {argv} failed")
+                times.append(time.perf_counter() - t0)
+    finally:
+        os.chdir(old)
+    return times
+
+
+def cli_row(launches, card, name, setup, tools, outputs):
+    """One CLI row: the tools run in two directories made by `setup`, with
+    the defaults (torch on cuda, counted) and with WR_BACKEND=native; every
+    file in `outputs` must be byte-identical between the two."""
+    with tempfile.TemporaryDirectory(
+            dir=Path(__file__).resolve().parent / "build") as tmp:
+        dirs = {b: Path(tmp) / b for b in ("torch", "native")}
+        for d in dirs.values():
+            d.mkdir()
+            setup(d)
+        with launches.row(f"entry ({name}, torch on cuda)", A_TO_D):
+            t_port = run_cli(tools, dirs["torch"], None)
+        t_nat = run_cli(tools, dirs["native"], "native")
+        for f in outputs:
+            if not filecmp.cmp(dirs["torch"] / f, dirs["native"] / f,
+                               shallow=False):
+                raise AssertionError(f"{name}: {f} differs between the "
+                                     "torch and the native backend")
+        sizes = {f: (dirs["torch"] / f).stat().st_size for f in outputs}
+    log(f"entry ({name}): {', '.join(outputs)} byte-identical to "
+        f"WR_BACKEND=native ({sizes} bytes); wall s [{card}]: " + ", ".join(
+            f"{mod.__name__.rsplit('.', 1)[1]} torch {a:.4f} native {b:.4f}"
+            for (mod, _), a, b in zip(tools, t_port, t_nat)))
+    return {"row": name, **{f"{mod.__name__.rsplit('.', 1)[1]}_{k}_s": t
+                            for k, ts in (("torch", t_port),
+                                          ("native", t_nat))
+                            for (mod, _), t in zip(tools, ts)}}
+
+
+def phase_entry(card, fld, natives, launches):
+    """Phase 4: the entry points on the phase-3 field, byte for byte
+    against the native copy. Returns the rows of times."""
+    import torch
+    from waverange_tpu_torch import native as wn
+    from waverange_tpu_torch.cli import mssg_dec, mssg_enc, wrdec, wrenc
+    from waverange_tpu_torch.core import codec as tc
+    from waverange_tpu_torch.ops import rans as R
+
+    rows = []
+    shape = fld.shape
+    # exact64 at TOLS[0], both entropy stages, against phase 3's natives
+    for name, kw, dec_kw, cid, needed in PATHS:
+        nat, ndec, t_nenc, t_ndec = natives[cid]
+        with launches.row(f"entry (exact64, {name})", needed):
+            t0 = time.perf_counter()
+            enc = tc.encode_field(fld, TOLS[0], backend="exact64",
+                                  device="cuda", **kw)
+            t1 = time.perf_counter()
+            dec = tc.decode_field(enc, backend="exact64", device="cuda",
+                                  **dec_kw)
+            t2 = time.perf_counter()
+        check_record(f"exact64 ({name})", enc, nat)
+        if dec.tobytes() != ndec.tobytes():
+            raise AssertionError(f"exact64 ({name}): decode differs")
+        rows.append({"row": f"exact64 ({name})", "tol": TOLS[0],
+                     "port_encode_s": t1 - t0, "port_decode_s": t2 - t1,
+                     "native_encode_s": t_nenc, "native_decode_s": t_ndec})
+        log(f"entry (exact64, {name}) tol {TOLS[0]:g}: record byte-identical "
+            f"to native, decode bit-identical; wall s [{card}]: encode "
+            f"{t1 - t0:.4f} decode {t2 - t1:.4f}, native (phase 3) "
+            f"{t_nenc:.4f} / {t_ndec:.4f}")
+        del enc, dec
+    del natives
+    torch.cuda.empty_cache()
+
+    # f32 kept in f32 (kernels A and C in f32, E-H on its planes), against
+    # the native f32 pipeline; the decode (f64, as every decoder reads the
+    # record) against the native f64 decoder
+    f32 = fld.astype(np.float32)
+    with launches.row("entry (f32, precision='native')", A_TO_H):
+        t0 = time.perf_counter()
+        enc = tc.encode_field(f32, F32_TOL, precision="native", coder="rans",
+                              entropy="device", device="cuda")
+        t1 = time.perf_counter()
+        dec = tc.decode_field(enc, device="cuda", entropy="device")
+        t2 = time.perf_counter()
+    nat = wn.encode_field_f32(f32, F32_TOL, coder=1)
+    t3 = time.perf_counter()
+    ndec = wn.decode_field(nat, shape, coder=1)
+    t4 = time.perf_counter()
+    check_record("f32", enc, nat)
+    err = float(np.abs(dec - f32).max())
+    if dec.tobytes() != ndec.tobytes() or not np.isfinite(dec).all() \
+            or err > 1.3 * F32_TOL * float(np.abs(f32).max()):
+        raise AssertionError(f"f32: decode differs from native or error "
+                             f"{err:g} above the contract")
+    rows.append({"row": "f32", "tol": F32_TOL, "nlay": enc.nlay,
+                 "port_encode_s": t1 - t0, "port_decode_s": t2 - t1,
+                 "native_encode_s": t3 - t2, "native_decode_s": t4 - t3})
+    log(f"entry (f32, device rANS) tol {F32_TOL:g}: nlay {enc.nlay}, record "
+        f"byte-identical to native.encode_field_f32 (turbo), decode "
+        f"bit-identical, max err {err:.3e}; wall s [{card}]: encode "
+        f"{t1 - t0:.4f} decode {t2 - t1:.4f}, native f32 encode "
+        f"{t3 - t2:.4f}, native decode {t4 - t3:.4f}")
+    del enc, dec, nat, ndec
+
+    # route: f32 below the floor goes to the f64 path (device entropy, as
+    # the reference routes it to exact64)
+    with launches.row("entry (route)", ("lift_fwd_axis", "quant_layer")
+                      + E_TO_G):
+        t0 = time.perf_counter()
+        enc = tc.encode_field(f32, ROUTE_TOL, precision="native",
+                              conformance="route", coder="rans",
+                              entropy="device", device="cuda")
+        t1 = time.perf_counter()
+    nat = wn.encode_field(f32, cutoff=np.array([ROUTE_TOL]), coder=1)
+    t2 = time.perf_counter()
+    check_record("route", enc, nat)
+    rows.append({"row": "route", "tol": ROUTE_TOL, "nlay": enc.nlay,
+                 "port_encode_s": t1 - t0, "native_encode_s": t2 - t1})
+    log(f"entry (route) f32 tol {ROUTE_TOL:g}: nlay {enc.nlay}, record "
+        f"byte-identical to native f64 turbo of the same f32 values; wall s "
+        f"[{card}]: encode {t1 - t0:.4f}, native {t2 - t1:.4f}")
+    del enc, nat
+
+    # the generic CLI on a raw file of the field in f64 and in f32
+    nz, ny, nx = shape
+
+    def generic_setup(d):
+        with open(d / "data.bin", "wb") as f:
+            fld.tofile(f)
+            f32.tofile(f)
+        blocks = "".join(
+            f"%field = {i}\n&input_data_type = {t}\n&nx = {nx}\n"
+            f"&ny = {ny}\n&nz = {nz}\n&compress = 1\n"
+            f"&tolerance = {CLI_TOL}\n/\n" for i, t in ((0, 2), (1, 1)))
+        (d / "inmeta").write_text(
+            "&in_name = data.bin\n&out_name = data.wrb\n"
+            "&header_name = data.wrh\n&file_type = 2\n"
+            "&endian_conversion = 0\n&number_of_field = 2\n" + blocks)
+
+    rows.append(cli_row(
+        launches, card, f"generic CLI, {nx}^3 f64 + f32", generic_setup,
+        [(wrenc, []), (wrdec, ["data.wrb", "data.wrh", "datarec.bin", "2",
+                               "0"])],
+        ["data.wrh", "data.wrb", "datarec.bin"]))
+    del f32
+
+    # the MSSG CLI: a GrADS file of two big-endian f32 records at half the
+    # field's extent, the first with masked points
+    undef = -9.99e33
+    recs = [fld[::2, ::2, ::2] + 300.0, 1.5 * fld[1::2, 1::2, 1::2] + 300.0]
+    recs[0][np.random.default_rng(SEED).random(recs[0].shape) < 0.2] = undef
+    mz, my, mx = recs[0].shape
+
+    def mssg_setup(d):
+        with open(d / "ocean.grd", "wb") as f:
+            for r in recs:
+                r.astype(">f4").tofile(f)
+        (d / "ocean.ctl").write_text(
+            f"DSET ^ocean.grd\nUNDEF {undef:g}\nXDEF {mx} LINEAR 0 1\n"
+            f"YDEF {my} LINEAR 0 1\nZDEF {mz} LEVELS 1\n"
+            f"TDEF {len(recs)} LINEAR 00Z01JAN2000 1dy\n")
+
+    rows.append(cli_row(
+        launches, card, f"MSSG CLI, {mx}^3 masked", mssg_setup,
+        [(mssg_enc, ["ocean", ".enc", "0", "1", "1", CLI_TOL, "0"]),
+         (mssg_dec, ["ocean", ".enc", "oceanrec", "0", "1", "1", "0"])],
+        ["ocean_h.enc", "ocean_f.enc", "oceanrec.grd", "oceanrec.ctl"]))
+    del recs
+
+    # rows of a plane tensor that start off a 16-byte boundary
+    n = 70001
+    planes = torch.from_numpy(np.clip(
+        np.random.default_rng(SEED).normal(100, 25, (3, n)), 0, 255).astype(
+            np.uint8)).cuda()
+    view = planes[1:]
+    if view.data_ptr() % 16 == 0:
+        raise AssertionError("the view was meant to start off a boundary")
+    with launches.row("entry (rANS encode of a misaligned row view)", E_TO_G):
+        streams = R.encode_planes_device(view, n)
+    for i, (got, p) in enumerate(zip(streams, view.cpu().numpy())):
+        if got != wn.encode_plane(p, coder=1):
+            raise AssertionError(f"misaligned view: plane {i} differs from "
+                                 "the native turbo coder")
+    log("entry (rANS encode of planes[1:], n = 70001, address 16k+"
+        f"{view.data_ptr() % 16}): streams byte-identical to native turbo")
+    return rows
 
 
 def main():
@@ -788,7 +1053,13 @@ def main():
     rans_times, rans_bounds = phase_rans(card, check, fld)
     times.update(rans_times)
     bounds.update(rans_bounds)
-    launches, rows = phase_main(card, fld)
+    counts = Launches()
+    rows, natives = phase_main(card, fld, counts)
+    t0 = time.perf_counter()
+    entry_rows = phase_entry(card, fld, natives, counts)
+    log(f"entry: phase 4 took {time.perf_counter() - t0:.1f} s")
+    launches = counts.total
+    log(f"kernel launches on the main paths and entry rows: {launches}")
 
     rk = "waverange_tpu/ops/rans_kernels.py"
     replaces = {
@@ -817,7 +1088,8 @@ def main():
                 "plain_ms": times[k][1], "bound_ms": bounds[k][0],
                 "bound_by": bounds[k][1], "library_ms": None}
                for k in replaces]
-    log(json.dumps({"card": card, "main_path": rows}))
+    log(json.dumps({"card": card, "main_path": rows,
+                    "entry_points": entry_rows}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -196,6 +196,16 @@ def test_device_entropy_needs_turbo_streams():
                                 dict(conformance="route"),
                                 dict(mx=2, cutoff=np.array([1e-6, 1e-5]))])
 def test_unported_options_raise(kw):
+    # the three options the port once refused: exact64 and route now run
+    # and give native's stream; local cutoffs run on backend="native" and
+    # the device backends refuse them rather than drop them
     a = smooth_field((8, 8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.encode_field(a, 1e-6, device="cpu", **kw)
+    if "mx" in kw:
+        with pytest.raises(ValueError, match="backend='native'"):
+            TC.encode_field(a, 1e-6, device="cpu", **kw)
+        assert_same_stream(
+            TC.encode_field(a, 1e-6, backend="native", **kw),
+            JC.encode_field(a, 1e-6, backend="native", **kw))
+    else:
+        assert_same_stream(TC.encode_field(a, 1e-6, device="cpu", **kw),
+                           JC.encode_field(a, 1e-6, backend="native"))

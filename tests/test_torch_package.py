@@ -31,6 +31,12 @@ assert np.abs(r - a).max() <= 1.3e-7 * np.abs(a).max()
 e = codec.encode_field(a, 1e-7, device="cpu", coder="rans", entropy="device")
 r = codec.decode_field(e, device="cpu", entropy="device")
 assert np.abs(r - a).max() <= 1.3e-7 * np.abs(a).max()
+e = codec.encode_field(a, 1e-7, backend="exact64", device="cpu")
+assert e.data == codec.encode_field(a, 1e-7, backend="native").data
+import importlib, pkgutil
+for m in pkgutil.walk_packages(waverange_tpu_torch.__path__,
+                               "waverange_tpu_torch."):
+    importlib.import_module(m.name)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 frozen = sorted(m for m in sys.modules
                 if m == "waverange_tpu" or m.startswith("waverange_tpu."))

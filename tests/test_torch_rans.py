@@ -411,3 +411,24 @@ def test_bad_model_sum_raises(delta):
     b[1 + 2 * 96:3 + 2 * 96] = ((f + delta) & 0xFFFF).to_bytes(2, "little")
     with pytest.raises(ValueError, match="model sums to"):
         R.decode_planes_device([bytes(b)], syms.size, device="cpu")
+
+
+@pytest.mark.parametrize("n", [70001, 13])
+def test_misaligned_row_view_is_copied_before_the_kernels(n, monkeypatch):
+    # kernel F stages rows from a 16-byte aligned base, so a row view that
+    # starts off one (planes[1:] with n % 16 != 0) is copied first; the
+    # streams stay native's
+    rng = np.random.default_rng(n)
+    planes = torch.from_numpy(rng.integers(0, 5, (3, n), dtype=np.uint8))
+    view = planes[1:]
+    assert view.data_ptr() % 16
+    seen = []
+    encode_blocks = R.encode_blocks
+
+    def spy(p, n_, mark=None):
+        seen.append(p.data_ptr() % 16)
+        return encode_blocks(p, n_, mark)
+    monkeypatch.setattr(R, "encode_blocks", spy)
+    streams = R.encode_planes_device(view, n)
+    assert seen == [0]
+    assert streams == [wn.encode_plane(p.numpy(), coder=1) for p in view]

@@ -1,14 +1,22 @@
-"""Field-level encode/decode with the device step on torch.
+"""Field-level encode/decode with pluggable backends.
 
-Port of the device path of `waverange_tpu.core.codec` (`_encode_jax`,
-`_decode_jax`). The wavelet and the byte-layer quantizer run on the given
-torch device (hand-written CUDA kernels on a GPU, the plain torch versions
-on the CPU). The entropy stage is either the port's copy of the host C++
-coder (`waverange_tpu_torch.native`, `entropy="host"`; codec.py:285-286,
-:318-319 of the reference), or, for the turbo format v2 (`coder="rans"`),
-the port's own rANS coder on the same device (`entropy="device"`,
-`ops.rans`, codec.py:278-283, :310-316): then the symbol planes never
-leave the device and only compressed bytes cross PCIe.
+Port of `waverange_tpu.core.codec`. Backends:
+  * "torch" (the default): the device step on a torch device. The wavelet
+    and the byte-layer quantizer run there (hand-written CUDA kernels on a
+    GPU, the plain torch versions on the CPU), as the reference's "jax"
+    backend runs them (`_encode_jax`, `_decode_jax`). The entropy stage is
+    either the port's copy of the host C++ coder
+    (`waverange_tpu_torch.native`, `entropy="host"`; codec.py:285-286,
+    :318-319 of the reference), or, for the turbo format v2
+    (`coder="rans"`), the port's own rANS coder on the same device
+    (`entropy="device"`, `ops.rans`, codec.py:278-283, :310-316): then the
+    symbol planes never leave the device and only compressed bytes cross
+    PCIe.
+  * "exact64": the reference's bit-exact f64 device backend
+    (`core.exact64`), which on this hardware is the torch backend's f64
+    path.
+  * "native": the port's copy of the C++ host pipeline, f64 or f32, the
+    only backend with local (mx, my, mz) cutoffs.
 
 Streams are `EncodedField` records with the fields and values of
 `waverange_tpu.core.codec.EncodedField`, so the native and JAX decoders
@@ -33,7 +41,7 @@ from ..ops import rans
 from ..ops.quant import decode_step, encode_step
 
 # f32 quantization floors at a few ulp of 2^-24: below this relative
-# tolerance precision="native" cannot meet the error contract
+# tolerance precision="native" on a device cannot meet the error contract
 # (waverange_tpu/core/codec.py:85-118). The f64 path has no floor.
 F32_REL_FLOOR = 1e-6
 
@@ -110,76 +118,123 @@ def state_from_numpy(planes, deps, minv, nlay, tolabs, midval, halfspanval,
             t(midval), t(halfspanval), t(np.bool_(trivial)))
 
 
-def encode_field(fld: np.ndarray, tolrel: float, wtflag: int = 1,
-                 precision: str = "f64", coder: str = "range",
-                 conformance: str = "strict", device="cuda",
+def _record(meta: dict, shape, cid: int) -> EncodedField:
+    nz, ny, nx = shape
+    return EncodedField(
+        nx=nx, ny=ny, nz=nz, tolabs=meta["tolabs"], midval=meta["midval"],
+        halfspanval=meta["halfspanval"], wlev=meta["wlev"],
+        nlay=meta["nlay"], ntot_enc=meta["ntot_enc"],
+        deps_vec=np.asarray(meta["deps_vec"], np.float64),
+        minval_vec=np.asarray(meta["minval_vec"], np.float64),
+        len_enc_vec=np.asarray(meta["len_enc_vec"], np.uint64),
+        data=meta["data"], coder_version=_VERSION_BY_ID[cid])
+
+
+def encode_field(fld: np.ndarray, tolrel: float, wtflag: int = 1, *,
                  cutoff: Optional[np.ndarray] = None,
                  mx: int = 1, my: int = 1, mz: int = 1,
                  backend: str = "torch",
-                 entropy: str = "host") -> EncodedField:
-    """Encode one (nz, ny, nx) field with the device step on `device`.
+                 precision: str = "f64",
+                 coder: str = "range",
+                 entropy: str = "host",
+                 conformance: str = "strict",
+                 device="cuda") -> EncodedField:
+    """Encode one (nz, ny, nx) field.
 
+    The parameters after `wtflag` are keyword-only; their names are the
+    reference's (waverange_tpu/core/codec.py:121-128), with `device`
+    added: the torch device of the "torch" and "exact64" backends
+    ("native" runs on the host and ignores it).
+
+    `cutoff` holds the mx*my*mz local-cutoff tolerances and replaces
+    `tolrel`, as in the native codec. Only `backend="native"` runs
+    mx*my*mz > 1; the device backends raise rather than drop the cutoff.
     `precision`: "f64" (reference semantics; f32 input is widened) or
-    "native" (keep f32 input in f32; refused under conformance="strict"
-    below the f32 floor). `coder`: "range" (reference format) or
-    "rans"/"turbo" (format v2). `entropy`: "host" (the native C++ coder)
-    or "device" (format v2 only: the port's rANS coder on `device`).
-    `cutoff`, when given, is the uniform cutoff (one value, mx=my=mz=1)
-    and replaces `tolrel`, as in the native codec.
+    "native" (keep f32 input in f32; "exact64" is always f64). `coder`:
+    "range" (reference format) or "rans"/"turbo" (format v2). `entropy`:
+    "host" (the native C++ coder) or "device" (format v2 on a device
+    backend: the port's rANS coder on `device`). `conformance`: "strict"
+    refuses f32 on a device below its error floor, "route" encodes such
+    a request on the f64 path of the same backend and device, "degraded"
+    accepts the floor. The native backend has no floor check, as in the
+    reference (:107-109).
     """
     cid = coder_id(coder)
-    if entropy == "device" and cid != 1:
-        raise ValueError("entropy='device' requires coder='rans' (the v2 "
-                         "format is the lane-parallel one; the v1 range "
-                         "coder is sequential)")
+    if backend not in ("torch", "exact64", "native"):
+        raise ValueError(f"unknown backend {backend!r}")
     if entropy not in ("host", "device"):
         raise ValueError(f"unknown entropy stage {entropy!r}")
-    if backend == "exact64":
-        raise NotImplementedError(
-            "backend='exact64' is not ported yet (ROADMAP: port modules, "
-            "core/exact64.py)")
-    if backend != "torch":
-        raise ValueError(f"unknown backend {backend!r}")
-    if conformance == "route":
-        raise NotImplementedError(
-            "conformance='route' is not ported yet (ROADMAP: port modules, "
-            "core/exact64.py)")
-    if conformance not in ("strict", "degraded"):
-        raise ValueError("conformance must be 'strict' or 'degraded'")
-    if not (mx == my == mz == 1):
-        raise NotImplementedError(
-            "non-uniform cutoffs (mx, my, mz != 1) are not ported yet "
-            "(ROADMAP: port modules, io/CLI entries)")
+    if entropy == "device" and (backend == "native" or cid != 1):
+        raise ValueError("entropy='device' requires backend='torch'/"
+                         "'exact64' and coder='rans' (the v2 format is the "
+                         "lane-parallel one; the v1 range coder is "
+                         "sequential)")
+    if conformance not in ("strict", "degraded", "route"):
+        raise ValueError("conformance must be 'strict', 'degraded' or "
+                         "'route'")
     if precision not in ("f64", "native"):
         raise ValueError("precision must be 'f64' or 'native'")
-    if cutoff is not None:
-        cutoff = np.asarray(cutoff, np.float64).ravel()
-        if cutoff.size != 1:
-            raise ValueError("a uniform cutoff holds one value")
-        tolrel = float(cutoff[0])
-    keep_f32 = precision == "native" and fld.dtype == np.float32
-    if keep_f32 and conformance == "strict" and tolrel < F32_REL_FLOOR:
-        raise ValueError(
-            f"tolerance {tolrel:g} is below the f32 path's error floor "
-            f"({F32_REL_FLOOR:g} relative); use precision='f64' or pass "
-            "conformance='degraded' to accept the floor")
-    dev = _device(device)
-    nz, ny, nx = fld.shape
-    arr = np.ascontiguousarray(fld, np.float32 if keep_f32 else np.float64)
+    if backend != "native" and not (mx == my == mz == 1):
+        raise ValueError(f"backend={backend!r} supports the uniform cutoff "
+                         "only (mx=my=mz=1); local cutoffs run on "
+                         "backend='native'")
+    if cutoff is None:
+        cutoff = np.array([tolrel], dtype=np.float64)
+    keep_f32 = (precision == "native" and fld.dtype == np.float32
+                and backend != "exact64")
+    if backend == "native":
+        if keep_f32:
+            meta = wn.encode_field_f32(fld, tolrel, wtflag=wtflag,
+                                       coder=cid, cutoff=cutoff, mx=mx,
+                                       my=my, mz=mz)
+        else:
+            meta = wn.encode_field(fld, wtflag=wtflag, cutoff=cutoff,
+                                   mx=mx, my=my, mz=mz, coder=cid)
+        return _record(meta, fld.shape, cid)
+    cutoff = np.asarray(cutoff, np.float64).ravel()
+    if cutoff.size != 1:
+        raise ValueError("a uniform cutoff holds one value")
+    # the uniform cutoff replaces tolrel, as in native; the reference's
+    # device backends are given tolrel only (codec.py:193-200)
+    tolrel = float(cutoff[0])
+    if keep_f32 and tolrel < F32_REL_FLOOR and conformance != "degraded":
+        if conformance == "strict":
+            raise ValueError(
+                f"tolerance {tolrel:g} is below the f32 path's error floor "
+                f"({F32_REL_FLOOR:g} relative); use precision='f64', "
+                "conformance='route' (the f64 path of this backend), or "
+                "conformance='degraded' to accept the floor")
+        keep_f32 = False
+    if backend == "exact64":
+        from .exact64 import encode_field_exact64
+        meta = encode_field_exact64(fld, tolrel, wtflag=wtflag, coder=cid,
+                                    entropy=entropy, device=device)
+    else:
+        meta = encode_device(
+            np.ascontiguousarray(fld, np.float32 if keep_f32
+                                 else np.float64),
+            tolrel, wtflag, WAV_LVL, cid, entropy, _device(device))
+    return _record(meta, fld.shape, cid)
+
+
+def encode_device(arr: np.ndarray, tolrel: float, wtflag: int, levels: int,
+                  cid: int, entropy: str, dev: torch.device) -> dict:
+    """The device step of the encode of an f32 or f64 field on `dev`, then
+    the entropy stage; returns the record as a dict (native's keys)."""
     x = torch.from_numpy(arr).to(dev)
     planes, deps, minv, nlay, tolabs, midval, halfspan, trivial = (
-        encode_step(x, tolrel, wtflag=bool(wtflag), levels=WAV_LVL))
-    wlev = WAV_LVL if wtflag else 0
+        encode_step(x, tolrel, wtflag=bool(wtflag), levels=levels))
+    del x
+    # the trivial field's wlev follows native (wr_native.cc:1936)
+    meta = dict(wlev=levels if wtflag else 0, deps_vec=np.zeros(NLAYMAX),
+                minval_vec=np.zeros(NLAYMAX),
+                len_enc_vec=np.zeros(NLAYMAX, np.uint64))
     stats = torch.stack([tolabs, midval, halfspan, trivial.double(),
                          nlay.double()]).cpu().tolist()
-    tolabs_f, midval_f, halfspan_f, trivial_f, nlay_f = stats
+    tolabs_f, meta["midval"], meta["halfspanval"], trivial_f, nlay_f = stats
     if trivial_f:
-        return EncodedField(
-            nx=nx, ny=ny, nz=nz, tolabs=0.0, midval=midval_f,
-            halfspanval=halfspan_f, wlev=wlev, nlay=0, ntot_enc=0,
-            deps_vec=np.zeros(NLAYMAX), minval_vec=np.zeros(NLAYMAX),
-            len_enc_vec=np.zeros(NLAYMAX, np.uint64), data=b"",
-            coder_version=_VERSION_BY_ID[cid])
+        meta.update(tolabs=0.0, nlay=0, ntot_enc=0, data=b"")
+        return meta
     nl = int(nlay_f)
     if entropy == "device":
         streams = rans.encode_planes_device(planes[:nl], planes.shape[1])
@@ -188,47 +243,66 @@ def encode_field(fld: np.ndarray, tolrel: float, wtflag: int = 1,
     else:
         payload, lens = wn.encode_planes_batch(planes[:nl].cpu().numpy(),
                                                coder=cid)
-    deps_vec = np.zeros(NLAYMAX)
-    minv_vec = np.zeros(NLAYMAX)
-    len_vec = np.zeros(NLAYMAX, np.uint64)
-    deps_vec[:nl] = deps[:nl].double().cpu().numpy()
-    minv_vec[:nl] = minv[:nl].double().cpu().numpy()
-    len_vec[:nl] = lens
-    return EncodedField(
-        nx=nx, ny=ny, nz=nz, tolabs=tolabs_f, midval=midval_f,
-        halfspanval=halfspan_f, wlev=wlev, nlay=nl, ntot_enc=len(payload),
-        deps_vec=deps_vec, minval_vec=minv_vec, len_enc_vec=len_vec,
-        data=payload, coder_version=_VERSION_BY_ID[cid])
+    meta["deps_vec"][:nl] = deps[:nl].double().cpu().numpy()
+    meta["minval_vec"][:nl] = minv[:nl].double().cpu().numpy()
+    meta["len_enc_vec"][:nl] = lens
+    meta.update(tolabs=tolabs_f, nlay=nl, ntot_enc=len(payload),
+                data=payload)
+    return meta
 
 
-def decode_field(enc: EncodedField, device="cuda",
-                 entropy: str = "host") -> np.ndarray:
-    """Decode to an (nz, ny, nx) float64 array: the entropy decode (the
-    native host coder, or with `entropy="device"`, for turbo v2 streams
-    only, the port's rANS decoder on `device`, which uploads only the
-    compressed bytes), then the layer accumulate and inverse wavelet on
-    `device`."""
+def decode_field(enc: EncodedField, *, backend: str = "torch",
+                 device="cuda", entropy: str = "host") -> np.ndarray:
+    """Decode to an (nz, ny, nx) float64 array. The entropy coder is
+    chosen by the stream's coder_version (31503 range / 31600 turbo).
+
+    "torch" and "exact64": the entropy decode (the native host coder, or
+    with `entropy="device"`, for turbo v2 streams only, the port's rANS
+    decoder on `device`, which uploads only the compressed bytes), then
+    the layer accumulate and inverse wavelet on `device`. "native": the
+    port's copy of the C++ decoder."""
     cid = coder_id_for_version(enc.coder_version)
-    if entropy == "device" and cid != 1:
-        raise ValueError("entropy='device' requires a turbo (v2) stream")
+    if backend not in ("torch", "exact64", "native"):
+        raise ValueError(f"unknown backend {backend!r}")
     if entropy not in ("host", "device"):
         raise ValueError(f"unknown entropy stage {entropy!r}")
-    dev = _device(device)
-    shape = enc.shape_zyx
-    if enc.ntot_enc == 0:
-        return np.full(shape, enc.midval)
-    nl = int(enc.nlay)
-    n = enc.nx * enc.ny * enc.nz
+    if entropy == "device" and (backend == "native" or cid != 1):
+        raise ValueError("entropy='device' requires backend='torch'/"
+                         "'exact64' and a turbo (v2) stream")
+    meta = dict(tolabs=enc.tolabs, midval=enc.midval,
+                halfspanval=enc.halfspanval, wlev=enc.wlev, nlay=enc.nlay,
+                ntot_enc=enc.ntot_enc, deps_vec=enc.deps_vec,
+                minval_vec=enc.minval_vec, len_enc_vec=enc.len_enc_vec,
+                data=enc.data)
+    if backend == "native":
+        return wn.decode_field(meta, enc.shape_zyx, coder=cid)
+    if backend == "exact64":
+        from .exact64 import decode_field_exact64
+        return decode_field_exact64(meta, enc.shape_zyx, coder=cid,
+                                    entropy=entropy, device=device)
+    return decode_device(meta, enc.shape_zyx, cid, entropy, _device(device))
+
+
+def decode_device(meta: dict, shape, cid: int, entropy: str,
+                  dev: torch.device) -> np.ndarray:
+    """The entropy decode, then the device step on `dev`, of a record
+    given as a dict (native's keys); an f64 array."""
+    if meta["ntot_enc"] == 0:
+        return np.full(shape, meta["midval"])
+    nl = int(meta["nlay"])
+    n = int(np.prod(shape))
+    lens = meta["len_enc_vec"][:nl]
     if entropy == "device":
-        planes = rans.decode_planes_device(enc.data, n, device=dev,
-                                           lens=enc.len_enc_vec[:nl])
+        planes = rans.decode_planes_device(meta["data"], n, device=dev,
+                                           lens=lens)
     else:
         planes = torch.from_numpy(wn.decode_planes_batch(
-            enc.data, enc.len_enc_vec[:nl], n, coder=cid)).to(dev)
+            meta["data"], lens, n, coder=cid)).to(dev)
     out = decode_step(
         planes,
-        torch.as_tensor(np.asarray(enc.deps_vec[:nl], np.float64), device=dev),
-        torch.as_tensor(np.asarray(enc.minval_vec[:nl], np.float64),
+        torch.as_tensor(np.asarray(meta["deps_vec"][:nl], np.float64),
                         device=dev),
-        shape, levels=int(enc.wlev))
+        torch.as_tensor(np.asarray(meta["minval_vec"][:nl], np.float64),
+                        device=dev),
+        shape, levels=int(meta["wlev"]))
     return out.cpu().numpy()

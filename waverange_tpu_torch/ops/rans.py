@@ -523,7 +523,10 @@ def encode_planes_device(planes: torch.Tensor, n: int) -> list[bytes]:
                          f"{tuple(planes.shape)} {planes.dtype}")
     if n == 0 or planes.shape[0] == 0:
         return [b""] * planes.shape[0]
-    return frame(fetch(encode_blocks(planes.contiguous(), n)))
+    planes = planes.contiguous()
+    if planes.data_ptr() % 16:  # a row view: F needs a 16-byte aligned base
+        planes = planes.clone()
+    return frame(fetch(encode_blocks(planes, n)))
 
 
 def encode_blocks(planes: torch.Tensor, n: int, mark=None) -> EncodedBlocks:
