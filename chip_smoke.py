@@ -48,7 +48,20 @@ Phases:
      the rANS encode of a plane view that starts off a 16-byte boundary
      against the native turbo coder; with the wall times of each. No
      FluSI row: the card's machine has no h5py (the CPU tests hold FluSI);
-  5. the last line: {"ok": true, "device": {...}}.
+  5. `waverange_tpu_torch.parallel` in a world of one on NCCL (the machine
+     has one card), each row with the launch counts set to 0 just before
+     it and read just after: `encode_fields_sharded` /
+     `decode_fields_sharded` of 4 fields of 512^3 f64 at 1e-7 (field 0 the
+     phase-3 field, fields 1-3 made the same way from seeds 1-3), every
+     record byte-identical to `native.encode_field` and every decode to
+     `native.decode_field`; `encode_field_divided` /
+     `decode_field_divided` of the phase-3 field into 4 z-slabs, the same
+     way per slab; `united_encode_step` and `distributed_encode_step` /
+     `distributed_decode_step` on the phase-3 field at 1e-16 and 1e-7,
+     their planes, parameters and decodes bitwise equal on the card to the
+     single-device `encode_step` / `decode_step`, the decode also to
+     phase 3's native decode; with the wall times of each;
+  6. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where no CUDA device is available or
 outside the repository. No failure is caught.
@@ -72,6 +85,8 @@ TOLS = (1e-16, 1e-7)
 CLI_TOL = "1e-7"        # the generic and MSSG CLI rows
 F32_TOL = 1e-5          # the f32 row
 ROUTE_TOL = 1e-9        # the route row: below the f32 floor
+PAR_TOL = 1e-7          # phase 5's sharded and divided rows
+PAR_FIELDS = 4          # phase 5's batch of fields, and of z-slabs
 LIFT_SHAPES = [(33, 31, 29), (17, 13, 9), (32, 1, 7), (1, 1, 64), (5, 5, 5),
                (64, 64, 64), (70, 150, 300), (130, 67, 259), (2, 2, 2),
                (3, 3, 3), (1, 2, 60001), (70000, 2, 2), (2100001, 1, 2)]
@@ -728,7 +743,7 @@ def split_device(fld, tol):
 
 def phase_main(card, fld, launches):
     """The two main paths at TOLS; returns the time rows and the native
-    records, decodes and times at TOLS[0] by coder id."""
+    records, decodes and times by (coder id, tol)."""
     import torch
     from waverange_tpu_torch import native as wn
     from waverange_tpu_torch.core import codec as tc
@@ -761,8 +776,7 @@ def phase_main(card, fld, launches):
             if dec.tobytes() != ndec.tobytes():
                 raise AssertionError(f"{name}, tol {tol:g}: decode differs "
                                      "from the native decode")
-            if tol == TOLS[0]:
-                natives[cid] = (nat, ndec, t1 - t0, t2 - t1)
+            natives[(cid, tol)] = (nat, ndec, t1 - t0, t2 - t1)
             # the bench's limit (bench.py:712): the error contract, or
             # twice the native decode's error where round-off dominates
             err = float(np.abs(dec - fld).max())
@@ -878,7 +892,7 @@ def phase_entry(card, fld, natives, launches):
     shape = fld.shape
     # exact64 at TOLS[0], both entropy stages, against phase 3's natives
     for name, kw, dec_kw, cid, needed in PATHS:
-        nat, ndec, t_nenc, t_ndec = natives[cid]
+        nat, ndec, t_nenc, t_ndec = natives[(cid, TOLS[0])]
         with launches.row(f"entry (exact64, {name})", needed):
             t0 = time.perf_counter()
             enc = tc.encode_field(fld, TOLS[0], backend="exact64",
@@ -898,7 +912,6 @@ def phase_entry(card, fld, natives, launches):
             f"{t1 - t0:.4f} decode {t2 - t1:.4f}, native (phase 3) "
             f"{t_nenc:.4f} / {t_ndec:.4f}")
         del enc, dec
-    del natives
     torch.cuda.empty_cache()
 
     # f32 kept in f32 (kernels A and C in f32, E-H on its planes), against
@@ -1016,6 +1029,166 @@ def phase_entry(card, fld, natives, launches):
     return rows
 
 
+def timed(fn):
+    """(fn(), wall seconds), the card synchronized before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def parallel_rows(card, fld, natives, launches):
+    """The rows of phase 5, in a world of one made by the caller."""
+    import torch
+    from waverange_tpu_torch import native as wn
+    from waverange_tpu_torch.ops import quant as Q
+    from waverange_tpu_torch.parallel import mesh as PM
+
+    rows = []
+    tol = PAR_TOL
+    # field-parallel: a backup's equal-shaped datasets, field 0 the phase-3
+    # field (its native record and decode are phase 3's)
+    batch = np.stack([fld] + [make_field(N_MAIN, np.random.default_rng(
+        SEED + i)) for i in range(1, PAR_FIELDS)])
+    with launches.row(f"parallel (sharded, {PAR_FIELDS} fields)", A_TO_D):
+        encs, t_enc = timed(lambda: PM.encode_fields_sharded(
+            batch, tol, device="cuda"))
+        dec, t_dec = timed(lambda: PM.decode_fields_sharded(
+            encs, device="cuda"))
+    t_nenc = t_ndec = 0.0
+    for i, e in enumerate(encs):
+        if i == 0:
+            nat, ndec, a, b = natives[(0, tol)]
+        else:
+            t0 = time.perf_counter()
+            nat = wn.encode_field(batch[i], wtflag=1, cutoff=np.array([tol]))
+            a = time.perf_counter() - t0
+            ndec = wn.decode_field(nat, batch[i].shape)
+            b = time.perf_counter() - t0 - a
+        t_nenc, t_ndec = t_nenc + a, t_ndec + b
+        check_record(f"sharded field {i}", e, nat)
+        if dec[i].tobytes() != ndec.tobytes():
+            raise AssertionError(f"sharded field {i}: decode differs from "
+                                 "the native decode")
+    del dec, ndec
+    rows.append({"row": f"sharded, {PAR_FIELDS} x {N_MAIN}^3 f64",
+                 "tol": tol, "port_encode_s": t_enc, "port_decode_s": t_dec,
+                 "native_encode_s": t_nenc, "native_decode_s": t_ndec})
+    log(f"parallel (sharded, {PAR_FIELDS} x {N_MAIN}^3 f64) tol {tol:g}: "
+        f"nlay {[e.nlay for e in encs]}, every record byte-identical to "
+        f"native.encode_field, decodes bit-identical; wall s [{card}]: "
+        f"encode {t_enc:.4f} decode {t_dec:.4f}, native (sum of "
+        f"{PAR_FIELDS}) {t_nenc:.4f} / {t_ndec:.4f}")
+    del batch, encs
+
+    # divided: the phase-3 field as PAR_FIELDS z-slab subdomains
+    with launches.row(f"parallel (divided into {PAR_FIELDS})", A_TO_D):
+        encs, t_enc = timed(lambda: PM.encode_field_divided(
+            fld, tol, n_blocks=PAR_FIELDS, device="cuda"))
+        rec, t_dec = timed(lambda: PM.decode_field_divided(
+            encs, device="cuda"))
+    k = fld.shape[0] // PAR_FIELDS
+    t0 = time.perf_counter()
+    nats = [wn.encode_field(fld[i * k:(i + 1) * k], wtflag=1,
+                            cutoff=np.array([tol]))
+            for i in range(PAR_FIELDS)]
+    t1 = time.perf_counter()
+    ndec = np.concatenate([wn.decode_field(n, (k,) + fld.shape[1:])
+                           for n in nats])
+    t2 = time.perf_counter()
+    for i, (e, n) in enumerate(zip(encs, nats)):
+        check_record(f"divided slab {i}", e, n)
+    if rec.tobytes() != ndec.tobytes():
+        raise AssertionError("divided: decode differs from the native "
+                             "decodes of the slabs")
+    rows.append({"row": f"divided into {PAR_FIELDS} z-slabs", "tol": tol,
+                 "port_encode_s": t_enc, "port_decode_s": t_dec,
+                 "native_encode_s": t1 - t0, "native_decode_s": t2 - t1})
+    log(f"parallel (divided into {PAR_FIELDS} z-slabs) tol {tol:g}: every "
+        f"slab record byte-identical to native, decode bit-identical; wall "
+        f"s [{card}]: encode {t_enc:.4f} decode {t_dec:.4f}, native "
+        f"{t1 - t0:.4f} / {t2 - t1:.4f}")
+    del encs, rec, nats, ndec
+
+    # united and distributed steps on the phase-3 field, against the
+    # single-device step on the card (phase 3 held its streams to native)
+    slab = torch.from_numpy(fld).cuda()
+    shape = fld.shape
+    for t in TOLS:
+        single, t_single = timed(lambda: Q.encode_step(slab, t))
+        nl = int(single[3])
+        ref = [single[0][:nl], single[1][:nl], single[2][:nl]]
+        want = Q.decode_step(ref[0].contiguous(), ref[1], ref[2], shape)
+        for name, make, needed in (
+                ("united", PM.united_encode_step,
+                 ("lift_fwd_axis", "quant_layer")),
+                ("distributed", PM.distributed_encode_step, A_TO_D)):
+            got = t_dec = None
+            with launches.row(f"parallel ({name}, tol {t:g})", needed):
+                out, t_enc = timed(lambda: make(None, shape)(slab, t))
+                if name == "distributed":
+                    got, t_dec = timed(lambda: PM.distributed_decode_step(
+                        None, shape)(ref[0].contiguous(), ref[1], ref[2]))
+            if not (int(out[3]) == nl and float(out[4]) == float(single[4])
+                    and all(torch.equal(a[:nl], b)
+                            for a, b in zip(out[:3], ref))):
+                raise AssertionError(f"{name} step, tol {t:g}: planes or "
+                                     "parameters differ from the "
+                                     "single-device step")
+            del out
+            if got is not None and not (
+                    torch.equal(got, want) and got.cpu().numpy().tobytes()
+                    == natives[(0, t)][1].tobytes()):
+                raise AssertionError(f"distributed decode, tol {t:g}: "
+                                     "differs from decode_step or from the "
+                                     "native decode")
+            del got
+            rows.append({"row": name, "tol": t, "nlay": nl,
+                         "port_encode_step_s": t_enc,
+                         "port_decode_step_s": t_dec,
+                         "single_encode_step_s": t_single})
+            log(f"parallel ({name}) tol {t:g}: nlay {nl}, planes, deps, "
+                f"minv, tolabs bit-identical to the single-device step"
+                + (", decode to decode_step and to native" if t_dec else "")
+                + f"; wall s [{card}]: step {t_enc:.4f}"
+                + (f" decode step {t_dec:.4f}" if t_dec else "")
+                + f", single-device step {t_single:.4f}")
+        del single, ref, want
+        torch.cuda.empty_cache()
+    del slab
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_parallel(card, fld, natives, launches):
+    """Phase 5: `waverange_tpu_torch.parallel` in a world of one on NCCL,
+    joined through a file store under build/ and left at the end."""
+    import torch
+    import torch.distributed as dist
+    from waverange_tpu_torch.parallel import distributed as PD
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        PD.init_distributed(init_method=f"file://{tmp}/store", world_size=1,
+                            rank=0, local_rank=0, device="cuda")
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"backend {dist.get_backend()}")
+            # the first collective sets up the NCCL communicator: timed
+            # here, so that the rows time the steps alone
+            one = torch.ones(1, device="cuda")
+            _, t_setup = timed(lambda: dist.all_reduce(one))
+            log(f"parallel: NCCL world of one, first collective (the "
+                f"communicator's setup) {t_setup:.4f} s [{card}]")
+            return [{"row": "NCCL setup", "first_collective_s": t_setup}] \
+                + parallel_rows(card, fld, natives, launches)
+        finally:
+            dist.destroy_process_group()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1058,8 +1231,13 @@ def main():
     t0 = time.perf_counter()
     entry_rows = phase_entry(card, fld, natives, counts)
     log(f"entry: phase 4 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    parallel = phase_parallel(card, fld, natives, counts)
+    log(f"parallel: phase 5 took {time.perf_counter() - t0:.1f} s")
+    del natives
     launches = counts.total
-    log(f"kernel launches on the main paths and entry rows: {launches}")
+    log(f"kernel launches on the main paths, entry and parallel rows: "
+        f"{launches}")
 
     rk = "waverange_tpu/ops/rans_kernels.py"
     replaces = {
@@ -1089,7 +1267,7 @@ def main():
                 "bound_by": bounds[k][1], "library_ms": None}
                for k in replaces]
     log(json.dumps({"card": card, "main_path": rows,
-                    "entry_points": entry_rows}))
+                    "entry_points": entry_rows, "parallel": parallel}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

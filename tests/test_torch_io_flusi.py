@@ -177,3 +177,41 @@ def test_regular_field_encodes_as_the_codec(tmp_path):
     with h5py.File(tmp_path / "enc.h5") as f:
         assert bytes(f[name][...].tobytes()) == e.data
         assert int(f[name].attrs["coder_version"][0]) == e.coder_version
+
+
+def test_backup_batched_path(tmp_path, monkeypatch):
+    """A backup file of equal-shaped datasets on backend="torch" (the
+    CLI with WR_DEVICE=cpu) goes through `encode_fields_sharded`, one
+    call per group of equal shapes, and every dataset's bytes are those
+    of the JAX package's batched jax backend and of the port's
+    field-by-field encode."""
+    import waverange_tpu_torch.io.flusi as TF
+    fields = make_backup_input(tmp_path / "in.h5",
+                               names=("ux", "uy", "uz", "scalar1"))
+    with h5py.File(tmp_path / "in.h5", "a") as f:  # a lone shape
+        d = f.create_dataset("Z_avg", data=smooth_field((6, 10, 12)))
+        d.attrs.create("bckp", np.array([1.5, 1e-3, 1e-3, 2.0, 100.0,
+                                         12, 10, 6], np.float64))
+        fields["Z_avg"] = np.asarray(d)
+    calls = []
+    real = TF.encode_fields_sharded
+
+    def counted(batch, *a, **kw):
+        calls.append(batch.shape)
+        return real(batch, *a, **kw)
+
+    monkeypatch.setattr(TF, "encode_fields_sharded", counted)
+    port("flusi_enc", ["in.h5", "enc.h5", 1, "1e-6"], tmp_path)
+    assert calls == [(4, 8, 10, 12)]
+    JF.encode_flusi_file(str(tmp_path / "in.h5"), str(tmp_path / "jax.h5"),
+                         1, 1e-6, backend="jax", verbose=False)
+    with h5py.File(tmp_path / "enc.h5") as fo, \
+            h5py.File(tmp_path / "jax.h5") as fj:
+        assert sorted(fo.keys()) == sorted(fields)
+        for nm, fld in fields.items():
+            got = fo[nm][...].tobytes()
+            assert got == fj[nm][...].tobytes(), nm
+            assert got == TC.encode_field(fld, 1e-6, device="cpu").data, nm
+            # the trivial dataset's record follows native (ROADMAP §3)
+            e = JC.encode_field(fld, 1e-6, backend="native")
+            assert int(fo[nm].attrs["wlev"][0]) == e.wlev, nm

@@ -104,3 +104,37 @@ def test_record_constants_match():
         TC.coder_id_for_version(1)
     assert ([f.name for f in dataclasses.fields(TC.EncodedField)]
             == [f.name for f in dataclasses.fields(JC.EncodedField)])
+
+
+@pytest.mark.parametrize("coder", [0, 1])
+@pytest.mark.parametrize("name", ["two_skew", "steal", "constant", "ramp"])
+def test_decode_plane_identical(name, coder):
+    syms = dist_syms(name)
+    stream = wn.encode_plane(syms, coder=coder)
+    got = tn.decode_plane(stream, syms.size, coder=coder)
+    assert got.tobytes() == wn.decode_plane(stream, syms.size,
+                                            coder=coder).tobytes()
+    assert np.array_equal(got, syms)
+
+
+@pytest.mark.parametrize("levels", [-4, -1, 1, 4])
+@pytest.mark.parametrize("shape", [(33, 31, 29), (16, 16, 16), (1, 5, 9)])
+def test_wavelet3d_identical(shape, levels):
+    a = smooth_field(shape)
+    got = tn.wavelet3d(a.copy(), levels)
+    assert got.tobytes() == wn.wavelet3d(a.copy(), levels).tobytes()
+    if levels > 0:  # and back, as the native inverse gives it
+        back = tn.wavelet3d(got.copy(), -levels)
+        assert back.tobytes() == wn.wavelet3d(got.copy(), -levels).tobytes()
+    with pytest.raises(ValueError, match="C-contiguous"):
+        tn.wavelet3d(a.astype(np.float32), levels)
+
+
+@pytest.mark.parametrize("levels", [0, 1, 4])
+@pytest.mark.parametrize("dims", [(29, 31, 33), (16, 16, 16), (9, 5, 1)])
+def test_index_p2w_identical(levels, dims):
+    rng = np.random.default_rng(levels)
+    for _ in range(25):
+        pt = [int(rng.integers(0, d)) for d in dims]
+        assert (tn.index_p2w(levels, *dims, *pt)
+                == wn.index_p2w(levels, *dims, *pt))

@@ -222,11 +222,29 @@ def encode_device(arr: np.ndarray, tolrel: float, wtflag: int, levels: int,
     """The device step of the encode of an f32 or f64 field on `dev`, then
     the entropy stage; returns the record as a dict (native's keys)."""
     x = torch.from_numpy(arr).to(dev)
-    planes, deps, minv, nlay, tolabs, midval, halfspan, trivial = (
-        encode_step(x, tolrel, wtflag=bool(wtflag), levels=levels))
+    step = encode_step(x, tolrel, wtflag=bool(wtflag), levels=levels)
     del x
     # the trivial field's wlev follows native (wr_native.cc:1936)
-    meta = dict(wlev=levels if wtflag else 0, deps_vec=np.zeros(NLAYMAX),
+    meta, nl = step_meta(step, levels if wtflag else 0)
+    if not nl:
+        return meta
+    planes = step[0][:nl]
+    if entropy == "device":
+        streams = rans.encode_planes_device(planes, planes.shape[1])
+        payload = b"".join(streams)
+        lens = np.array([len(s) for s in streams], np.uint64)
+    else:
+        payload, lens = wn.encode_planes_batch(planes.cpu().numpy(),
+                                               coder=cid)
+    return with_payload(meta, payload, lens)
+
+
+def step_meta(step, wlev: int):
+    """The record (native's keys) of an `encode_step` result, all but its
+    payload, and the number of planes to code: 0 for a trivial field,
+    whose record is then complete."""
+    planes, deps, minv, nlay, tolabs, midval, halfspan, trivial = step
+    meta = dict(wlev=wlev, deps_vec=np.zeros(NLAYMAX),
                 minval_vec=np.zeros(NLAYMAX),
                 len_enc_vec=np.zeros(NLAYMAX, np.uint64))
     stats = torch.stack([tolabs, midval, halfspan, trivial.double(),
@@ -234,20 +252,19 @@ def encode_device(arr: np.ndarray, tolrel: float, wtflag: int, levels: int,
     tolabs_f, meta["midval"], meta["halfspanval"], trivial_f, nlay_f = stats
     if trivial_f:
         meta.update(tolabs=0.0, nlay=0, ntot_enc=0, data=b"")
-        return meta
+        return meta, 0
     nl = int(nlay_f)
-    if entropy == "device":
-        streams = rans.encode_planes_device(planes[:nl], planes.shape[1])
-        payload = b"".join(streams)
-        lens = np.array([len(s) for s in streams], np.uint64)
-    else:
-        payload, lens = wn.encode_planes_batch(planes[:nl].cpu().numpy(),
-                                               coder=cid)
     meta["deps_vec"][:nl] = deps[:nl].double().cpu().numpy()
     meta["minval_vec"][:nl] = minv[:nl].double().cpu().numpy()
-    meta["len_enc_vec"][:nl] = lens
-    meta.update(tolabs=tolabs_f, nlay=nl, ntot_enc=len(payload),
-                data=payload)
+    meta.update(tolabs=tolabs_f, nlay=nl)
+    return meta, nl
+
+
+def with_payload(meta: dict, payload: bytes, lens) -> dict:
+    """`meta` completed with the coded planes, back to back in `payload`,
+    and their lengths."""
+    meta["len_enc_vec"][:meta["nlay"]] = lens
+    meta.update(ntot_enc=len(payload), data=payload)
     return meta
 
 
@@ -269,11 +286,7 @@ def decode_field(enc: EncodedField, *, backend: str = "torch",
     if entropy == "device" and (backend == "native" or cid != 1):
         raise ValueError("entropy='device' requires backend='torch'/"
                          "'exact64' and a turbo (v2) stream")
-    meta = dict(tolabs=enc.tolabs, midval=enc.midval,
-                halfspanval=enc.halfspanval, wlev=enc.wlev, nlay=enc.nlay,
-                ntot_enc=enc.ntot_enc, deps_vec=enc.deps_vec,
-                minval_vec=enc.minval_vec, len_enc_vec=enc.len_enc_vec,
-                data=enc.data)
+    meta = record_meta(enc)
     if backend == "native":
         return wn.decode_field(meta, enc.shape_zyx, coder=cid)
     if backend == "exact64":
@@ -281,6 +294,15 @@ def decode_field(enc: EncodedField, *, backend: str = "torch",
         return decode_field_exact64(meta, enc.shape_zyx, coder=cid,
                                     entropy=entropy, device=device)
     return decode_device(meta, enc.shape_zyx, cid, entropy, _device(device))
+
+
+def record_meta(enc) -> dict:
+    """A record of either package as a dict (native's keys)."""
+    return dict(tolabs=enc.tolabs, midval=enc.midval,
+                halfspanval=enc.halfspanval, wlev=enc.wlev, nlay=enc.nlay,
+                ntot_enc=enc.ntot_enc, deps_vec=enc.deps_vec,
+                minval_vec=enc.minval_vec, len_enc_vec=enc.len_enc_vec,
+                data=enc.data)
 
 
 def decode_device(meta: dict, shape, cid: int, entropy: str,
@@ -298,11 +320,17 @@ def decode_device(meta: dict, shape, cid: int, entropy: str,
     else:
         planes = torch.from_numpy(wn.decode_planes_batch(
             meta["data"], lens, n, coder=cid)).to(dev)
-    out = decode_step(
+    return decode_planes(meta, planes, shape).cpu().numpy()
+
+
+def decode_planes(meta: dict, planes: torch.Tensor, shape) -> torch.Tensor:
+    """The device step of a decode: the record's (nlay, n) symbol planes,
+    on their device, to the (nz, ny, nx) field (a tensor there)."""
+    nl, dev = int(meta["nlay"]), planes.device
+    return decode_step(
         planes,
         torch.as_tensor(np.asarray(meta["deps_vec"][:nl], np.float64),
                         device=dev),
         torch.as_tensor(np.asarray(meta["minval_vec"][:nl], np.float64),
                         device=dev),
         shape, levels=int(meta["wlev"]))
-    return out.cpu().numpy()

@@ -19,12 +19,14 @@ A copy of `waverange_tpu.io.flusi` that calls this package's codec
 """
 from __future__ import annotations
 
+from collections import defaultdict
 from typing import List
 
 import numpy as np
 
 from ..core.codec import CODER_VERSION, NLAYMAX, EncodedField, \
     encode_field, decode_field
+from ..parallel import encode_fields_sharded
 from .generic import _env_conformance
 
 # The 50 dataset names of a FluSI restart file (main_enc.cpp:319-330).
@@ -181,17 +183,33 @@ def encode_flusi_file(in_name: str, out_name: str, ifiletype: int,
                 nx, ny, nz = int(bckp[5]), int(bckp[6]), int(bckp[7])
                 fields[name] = (np.ascontiguousarray(
                     d[...], np.float64).reshape(nz, ny, nx), bckp)
-        # Field by field. The reference's jax backend batches equal-shaped
-        # datasets through its sharded encoder (flusi.py:188-205), with
-        # the same bytes; this package's batched path comes with its
-        # `parallel` module.
+        # Block-parallel over fields (BASELINE config[2]): on the torch
+        # backend, each group of equal-shaped datasets encodes through the
+        # sharded encoder (the device step per field, the host range coder
+        # on a bounded thread pool), as the reference's jax backend does
+        # (flusi.py:188-205); the bytes are the field-by-field ones.
+        encs = {}
+        if backend == "torch" and cut is None and len(present) > 1 \
+                and coder == "range":
+            groups = defaultdict(list)
+            for name in present:
+                groups[fields[name][0].shape].append(name)
+            for names in groups.values():
+                if len(names) == 1:
+                    continue
+                batch = np.stack([fields[nm][0] for nm in names])
+                for nm, e in zip(names, encode_fields_sharded(
+                        batch, tol_base, device=device)):
+                    encs[nm] = e
         with h5py.File(out_name, "a") as fout:
             for name in present:
                 fld, bckp = fields[name]
                 nz, ny, nx = fld.shape
                 if verbose:
                     print(f" dset={name} nx={nx} ny={ny} nz={nz}")
-                if cut is None:
+                if name in encs:
+                    enc = encs[name]
+                elif cut is None:
                     enc = encode_field(fld, tol_base, wtflag=1,
                                        backend=backend, coder=coder,
                                        conformance=_env_conformance(),

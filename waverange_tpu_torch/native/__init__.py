@@ -43,12 +43,19 @@ def get_lib() -> ct.CDLL:
 
         lib.wrn_encode_plane.restype = u64
         lib.wrn_encode_plane.argtypes = [u8p, u64, u8p, u64, ct.c_int]
+        lib.wrn_decode_plane.restype = u64
+        lib.wrn_decode_plane.argtypes = [u8p, u64, u8p, u64, ct.c_int]
         lib.wrn_encode_planes_batch.restype = u64
         lib.wrn_encode_planes_batch.argtypes = [
             u8p, u64, u64, u8p, u64, u64p, ct.c_int, ct.c_int]
         lib.wrn_decode_planes_batch.restype = None
         lib.wrn_decode_planes_batch.argtypes = [
             u8p, u64p, u64, u8p, u64, ct.c_int, ct.c_int]
+        lib.wrn_wavelet3d.restype = None
+        lib.wrn_wavelet3d.argtypes = [f64p, u64, u64, u64, ct.c_int]
+        i32p = ct.POINTER(ct.c_int)
+        lib.wrn_index_p2w.restype = None
+        lib.wrn_index_p2w.argtypes = [ct.c_int] * 7 + [i32p] * 4
         lib.wrn_encode_field_nc.restype = u64
         lib.wrn_encode_field_nc.argtypes = [
             f64p, u64, u64, u64, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
@@ -120,6 +127,17 @@ def encode_plane(syms: np.ndarray, coder: int = 0) -> bytes:
     return out[:ln].tobytes()
 
 
+def decode_plane(data: bytes, n: int, coder: int = 0) -> np.ndarray:
+    """Entropy-decode one layer bitstream into its n uint8 symbols."""
+    lib = get_lib()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    syms = np.empty(n, dtype=np.uint8)
+    got = lib.wrn_decode_plane(_u8p(buf), buf.size, _u8p(syms), n, coder)
+    if got != n:
+        raise ValueError(f"decode_plane: expected {n} symbols, got {got}")
+    return syms
+
+
 def encode_planes_batch(planes: np.ndarray, nthreads: int | None = None,
                         coder: int = 0) -> Tuple[bytes, np.ndarray]:
     """Encode (nplanes, n) uint8 planes in parallel.
@@ -160,6 +178,32 @@ def decode_planes_batch(payload: bytes | np.ndarray, lens: np.ndarray, n: int,
         _u8p(buf), _u64p(lens), nplanes, _u8p(syms), n,
         nthreads or _default_threads(), coder)
     return syms
+
+
+def wavelet3d(fld: np.ndarray, levels: int) -> np.ndarray:
+    """In-place separable CDF 9/7 transform on an (nz, ny, nx) f64 array.
+
+    ``levels`` > 0 forward, < 0 inverse — axis x (last, contiguous) is the
+    "first" axis in codec convention.
+    """
+    if fld.dtype != np.float64 or not fld.flags.c_contiguous \
+            or fld.ndim != 3:
+        raise ValueError("wavelet3d works in place on a C-contiguous "
+                         "(nz, ny, nx) float64 array")
+    nz, ny, nx = fld.shape
+    get_lib().wrn_wavelet3d(_f64p(fld), nx, ny, nz, levels)
+    return fld
+
+
+def index_p2w(levels: int, n1: int, n2: int, n3: int,
+              i1: int, i2: int, i3: int) -> Tuple[int, int, int, int]:
+    """Where the point (i1, i2, i3) of an (n1, n2, n3) field lies after a
+    `levels`-level transform: (level, o1, o2, o3)."""
+    lvl = ct.c_int()
+    o1, o2, o3 = ct.c_int(), ct.c_int(), ct.c_int()
+    get_lib().wrn_index_p2w(levels, n1, n2, n3, i1, i2, i3, ct.byref(lvl),
+                            ct.byref(o1), ct.byref(o2), ct.byref(o3))
+    return lvl.value, o1.value, o2.value, o3.value
 
 
 _sink_local = None

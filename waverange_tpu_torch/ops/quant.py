@@ -61,11 +61,19 @@ def quant_layer(fld: torch.Tensor, plane: torch.Tensor,
     raise ValueError(f"unsupported device {fld.device}")
 
 
-def quantize_layers(w: torch.Tensor, tolabs):
+def quantize_layers(w: torch.Tensor, tolabs, reduce=None):
     """Quantize a flat wavelet field into up to 8 byte layers.
 
     `w` is the caller's working copy: it is overwritten with the residual.
     `tolabs` is the absolute tolerance (already derated by WAV_ACC_COEF).
+    `reduce`, for a field split across processes (`w` is this process's
+    part), maps a local (min, max) pair of 0-d tensors to the pair over
+    the whole field (an all-reduce MIN/MAX). It is applied to the first
+    min/max and to each layer's residual min/max before the next layer's
+    parameters are formed, so every part is quantized with the whole
+    field's parameters, as the single-process quantizer would quantize
+    the whole. It runs on the device and returns device tensors: nothing
+    waits on the host between layers.
 
     Returns planes (8, n) uint8, deps (8,), minv (8,) in the dtype of `w`,
     and nlay, a 0-d int32 tensor: the number of valid layers (1..8).
@@ -83,6 +91,8 @@ def quantize_layers(w: torch.Tensor, tolabs):
     nlay = torch.zeros((), dtype=torch.int32, device=dev)
     mn, mx = torch.aminmax(w)
     for ilay in range(NLAYMAX):
+        if reduce is not None:
+            mn, mx = reduce(mn, mx)
         deps0 = (mx - mn) / qalpha
         hit_tol = deps0 < tolabs
         d = torch.where(hit_tol, tolabs, deps0)
@@ -121,6 +131,23 @@ def accumulate_layers(planes: torch.Tensor, deps: torch.Tensor,
     raise ValueError(f"unsupported device {planes.device}")
 
 
+def field_params(mn: torch.Tensor, mx: torch.Tensor, tolrel: float,
+                 dtype: torch.dtype):
+    """The field's scalars from its min and max (0-d tensors of `dtype`):
+    (tolabs, midval, halfspanval, trivial), float64 0-d tensors but
+    `trivial`, a bool flagging the constant-field exit
+    (wrappers.cpp:257-266)."""
+    mn64, mx64 = mn.to(torch.float64), mx.to(torch.float64)
+    halfspanval = (mx64 - mn64) / 2
+    midval = mn64 + halfspanval
+    tiny = 2 * (DBL_MIN if dtype == torch.float64 else FLT_MIN)
+    trivial = halfspanval <= tiny
+    wav_acc = torch.tensor(WAV_ACC_COEF, dtype=torch.float64,
+                           device=mn.device)
+    tolabs = tolrel * torch.maximum(mn64.abs(), mx64.abs()) / wav_acc
+    return tolabs, midval, halfspanval, trivial
+
+
 def encode_step(fld: torch.Tensor, tolrel: float, wtflag: bool = True,
                 levels: int = 4):
     """Device-side encode of an (nz, ny, nx) float64 or float32 field:
@@ -135,19 +162,12 @@ def encode_step(fld: torch.Tensor, tolrel: float, wtflag: bool = True,
     As in the native codec, midval, halfspanval and tolabs are float64 for
     both dtypes, and the f32 layer schedule uses tolabs rounded to f32.
     """
-    dev = fld.device
     mn, mx = torch.aminmax(fld)
-    mn64, mx64 = mn.to(torch.float64), mx.to(torch.float64)
-    halfspanval = (mx64 - mn64) / 2
-    midval = mn64 + halfspanval
-    tiny = 2 * (DBL_MIN if fld.dtype == torch.float64 else FLT_MIN)
-    trivial = halfspanval <= tiny
-
+    tolabs, midval, halfspanval, trivial = field_params(mn, mx, tolrel,
+                                                        fld.dtype)
     w = cdf97_forward(fld, levels if wtflag else 0,
                       out=torch.empty_like(
                           fld, memory_format=torch.contiguous_format))
-    wav_acc = torch.tensor(WAV_ACC_COEF, dtype=torch.float64, device=dev)
-    tolabs = tolrel * torch.maximum(mn64.abs(), mx64.abs()) / wav_acc
     planes, deps, minv, nlay = quantize_layers(w.view(-1),
                                                tolabs.to(fld.dtype))
     return planes, deps, minv, nlay, tolabs, midval, halfspanval, trivial
