@@ -61,7 +61,24 @@ Phases:
      their planes, parameters and decodes bitwise equal on the card to the
      single-device `encode_step` / `decode_step`, the decode also to
      phase 3's native decode; with the wall times of each;
-  6. the last line: {"ok": true, "device": {...}}.
+  6. the remaining entry points, each row with the launch counts set to 0
+     just before it and read just after, byte for byte:
+     `graft_entry.entry()` on the card against the same call on the CPU
+     (the plain versions), its planes coded by the host coder against
+     `native.encode_field`; the ragged `ops.rans.encode_planes` /
+     `decode_planes` on one list (the phase-3 field's 8 planes at 1e-16
+     and 4 at 1e-7, an empty plane, and the planes of 1, 65537 and 70001
+     symbols of phase 2's cases) against `native.encode_plane(p,
+     coder=1)`, beside `encode_planes_device` on the 8 planes;
+     `decode_compute_seconds` on the 8 streams beside phase 2's kernel H;
+     `python -m waverange_tpu_torch build-lib` into a temporary
+     directory, `examples/library/example.c` (a copy) compiled against it
+     and run, and the phase-3 field at 1e-7 through its
+     `encoding_wrap` / `decoding_wrap` against phase 3's native record and
+     decode; `graft_entry.dryrun_multichip(1)` in a world of one on NCCL
+     made in this process; then the codec's stage timings
+     (`utils.get_timings`) of phases 3-6;
+  7. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where no CUDA device is available or
 outside the repository. No failure is caught.
@@ -1189,12 +1206,255 @@ def phase_parallel(card, fld, natives, launches):
             dist.destroy_process_group()
 
 
+def run(cmd, **kw):
+    """Run a command; raise with its output if it fails."""
+    r = subprocess.run([str(c) for c in cmd], capture_output=True, text=True,
+                       **kw)
+    if r.returncode != 0:
+        raise AssertionError(f"{cmd} failed ({r.returncode}):\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    return r.stdout
+
+
+def libwaverange_rows(card, fld, natives):
+    """`build-lib` in a child process into a temporary directory, then the
+    C example compiled against it and the phase-3 field through its ABI."""
+    import ctypes as ct
+    import shutil
+
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=repo / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        out = run([sys.executable, "-m", "waverange_tpu_torch", "build-lib",
+                   tmp / "build"], cwd=repo, timeout=600)
+        t_build = time.perf_counter() - t0
+        libdir = Path(out.strip().splitlines()[-1])
+        if libdir != tmp / "build" / "lib":
+            raise AssertionError(f"build-lib printed {libdir}")
+        # a copy of the example, so that its "../../build/include/
+        # waverange.h" is the port's header
+        ex = tmp / "examples" / "library"
+        ex.mkdir(parents=True)
+        shutil.copy(repo / "examples" / "library" / "example.c", ex)
+        run(["gcc", "-O2", "-o", "example", "example.c", f"-L{libdir}",
+             "-lwaverange", f"-Wl,-rpath,{libdir}", "-lm"], cwd=ex)
+        said = run([ex / "example"], cwd=ex)
+        if "PASS" not in said:
+            raise AssertionError(f"example.c: {said[-500:]}")
+
+        # the phase-3 field at PAR_TOL through encoding_wrap/decoding_wrap,
+        # against phase 3's native range-coder record and decode
+        nat, ndec, t_nenc, t_ndec = natives[(0, PAR_TOL)]
+        lib = ct.CDLL(str(libdir / "libwaverange.so"))
+        f64 = ct.POINTER(ct.c_double)
+        u64 = ct.POINTER(ct.c_ulong)
+        u8 = ct.POINTER(ct.c_ubyte)
+        i3 = [ct.c_int] * 3
+        record = [f64, f64, f64, u8, u8, u64, f64, f64, u64, u8]
+        lib.setup_wr.argtypes = i3 + [u8, u64]
+        lib.encoding_wrap.argtypes = i3 + [f64, ct.c_int] + i3 + [f64] \
+            + record
+        lib.decoding_wrap.argtypes = i3 + [f64] + record
+        for f in (lib.setup_wr, lib.encoding_wrap, lib.decoding_wrap):
+            f.restype = None
+        nz, ny, nx = fld.shape
+        nlaymax, cap = ct.c_ubyte(), ct.c_ulong()
+        lib.setup_wr(nx, ny, nz, ct.byref(nlaymax), ct.byref(cap))
+        a = fld.copy()
+        cutoff = np.array([PAR_TOL])
+        tolabs, midval, halfspan = ct.c_double(), ct.c_double(), \
+            ct.c_double()
+        wlev, nlay, ntot = ct.c_ubyte(), ct.c_ubyte(), ct.c_ulong()
+        deps, minv = np.zeros(8), np.zeros(8)
+        lens = np.zeros(8, np.uint64)
+        data = np.zeros(cap.value, np.uint8)
+        t0 = time.perf_counter()
+        lib.encoding_wrap(
+            nx, ny, nz, a.ctypes.data_as(f64), 1, 1, 1, 1,
+            cutoff.ctypes.data_as(f64), ct.byref(tolabs), ct.byref(midval),
+            ct.byref(halfspan), ct.byref(wlev), ct.byref(nlay),
+            ct.byref(ntot), deps.ctypes.data_as(f64),
+            minv.ctypes.data_as(f64), lens.ctypes.data_as(u64),
+            data.ctypes.data_as(u8))
+        t1 = time.perf_counter()
+        k = nlay.value
+        same = {"nlay": k == nat["nlay"], "tolabs": tolabs.value ==
+                nat["tolabs"], "midval": midval.value == nat["midval"],
+                "halfspanval": halfspan.value == nat["halfspanval"],
+                "wlev": wlev.value == nat["wlev"],
+                "deps": deps[:k].tobytes() == nat["deps_vec"][:k].tobytes(),
+                "minval": minv[:k].tobytes()
+                == nat["minval_vec"][:k].tobytes(),
+                "len_enc": lens[:k].tobytes()
+                == np.asarray(nat["len_enc_vec"], np.uint64)[:k].tobytes(),
+                "data": ntot.value == nat["ntot_enc"]
+                and data[:ntot.value].tobytes() == nat["data"]}
+        if not all(same.values()):
+            raise AssertionError(f"libwaverange encoding_wrap differs from "
+                                 f"the native record: {same}")
+        rec = np.zeros_like(fld)
+        t2 = time.perf_counter()
+        lib.decoding_wrap(
+            nx, ny, nz, rec.ctypes.data_as(f64), ct.byref(tolabs),
+            ct.byref(midval), ct.byref(halfspan), ct.byref(wlev),
+            ct.byref(nlay), ct.byref(ntot), deps.ctypes.data_as(f64),
+            minv.ctypes.data_as(f64), lens.ctypes.data_as(u64),
+            data.ctypes.data_as(u8))
+        t3 = time.perf_counter()
+        if rec.tobytes() != ndec.tobytes():
+            raise AssertionError("libwaverange decoding_wrap differs from "
+                                 "the native decode")
+    log(f"remaining (build-lib): built in {t_build:.1f} s by `python -m "
+        f"waverange_tpu_torch build-lib`; examples/library/example.c "
+        f"against it: PASS; {nx}^3 f64 tol {PAR_TOL:g} through "
+        f"encoding_wrap / decoding_wrap: record byte-identical to phase "
+        f"3's native range coder (nlay {k}), decode bit-identical; wall s "
+        f"[{card}]: encode {t1 - t0:.4f} decode {t3 - t2:.4f}, native "
+        f"(phase 3) {t_nenc:.4f} / {t_ndec:.4f}")
+    return [{"row": "build-lib", "build_s": t_build},
+            {"row": "libwaverange ABI", "tol": PAR_TOL,
+             "abi_encode_s": t1 - t0, "abi_decode_s": t3 - t2,
+             "native_encode_s": t_nenc, "native_decode_s": t_ndec}]
+
+
+def phase_remaining(card, fld, natives, h_ms, launches):
+    """Phase 6: `graft_entry.entry()`, the ragged `encode_planes` /
+    `decode_planes`, `decode_compute_seconds`, `build-lib` and its ABI,
+    and `graft_entry.dryrun_multichip(1)` in a world of one on NCCL; each
+    byte for byte. Returns the rows of times."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    import torch.distributed as dist
+    from waverange_tpu_torch import graft_entry as GE
+    from waverange_tpu_torch import native as wn
+    from waverange_tpu_torch.ops import quant as Q
+    from waverange_tpu_torch.ops import rans as R
+    from waverange_tpu_torch.parallel import distributed as PD
+
+    rows = []
+    # entry(): on the card, against the same call on the CPU (the plain
+    # versions), and its planes coded by the host coder against native
+    with launches.row("remaining (entry())", ("lift_fwd_axis",
+                                              "quant_layer")):
+        fwd, args = GE.entry()
+        out, t_card = timed(lambda: fwd(*args))
+    fwd, cpu_args = GE.entry(device="cpu")
+    t0 = time.perf_counter()
+    ref = fwd(*cpu_args)
+    t_cpu = time.perf_counter() - t0
+    nl = int(out[3])
+    if int(ref[3]) != nl or not all(
+            torch.equal(a[:nl].cpu(), b[:nl])
+            for a, b in zip(out[:3], ref[:3])):
+        raise AssertionError("entry(): planes, deps or minv on the card "
+                             "differ from the plain versions")
+    payload, _ = wn.encode_planes_batch(out[0][:nl].cpu().numpy())
+    nat = wn.encode_field(cpu_args[0].numpy(), wtflag=1,
+                          cutoff=np.array([cpu_args[1]]))
+    if nat["nlay"] != nl or payload != nat["data"]:
+        raise AssertionError("entry(): planes code to other bytes than "
+                             "native.encode_field")
+    del out, ref
+    rows.append({"row": "entry()", "step_s": t_card, "plain_step_s": t_cpu})
+    log(f"remaining (entry()): 64^3 f64, nlay {nl}, planes, deps, minv "
+        f"bitwise equal to device='cpu', coded bytes = native.encode_field; "
+        f"wall s [{card}]: step {t_card:.4f}, plain on the CPU {t_cpu:.4f}")
+
+    # the ragged API on one list: the phase-3 field's planes at both
+    # tolerances, an empty plane, and rans_cases' planes of 1, 65537 and
+    # 70001 symbols
+    x = torch.from_numpy(fld).cuda()
+    by_tol = {}
+    for tol in TOLS:
+        p, _, _, nlay, *_ = Q.encode_step(x, tol)
+        by_tol[tol] = p[:int(nlay)]
+    del x, p
+    n = fld.size
+    uniform = by_tol[TOLS[0]]
+    planes = [row for tol in TOLS for row in by_tol[tol].cpu().numpy()]
+    n_big = len(planes)
+    del by_tol
+    planes.append(np.empty(0, np.uint8))
+    planes += [row for _, p in rans_cases(np.random.default_rng(SEED))
+               if p.shape[1] in (1, 65537, 70001) for row in p]
+    with launches.row("remaining (ragged encode_planes)", E_TO_G):
+        streams, t_rag = timed(lambda: R.encode_planes(planes))
+    with ThreadPoolExecutor(8) as ex:
+        want = list(ex.map(lambda p: wn.encode_plane(p, coder=1), planes))
+    bad = [i for i, (a, b) in enumerate(zip(streams, want)) if a != b]
+    if bad or streams[n_big] != b"":
+        raise AssertionError(f"ragged encode_planes: streams {bad} differ "
+                             "from native.encode_plane(p, coder=1)")
+    del want
+    with launches.row("remaining (encode_planes_device, 8 planes)", E_TO_G):
+        dev_streams, t_dev = timed(
+            lambda: R.encode_planes_device(uniform, n))
+    if dev_streams != streams[:uniform.shape[0]]:
+        raise AssertionError("encode_planes_device and encode_planes differ")
+    del dev_streams, uniform
+    ns = [p.size for p in planes]
+    with launches.row("remaining (ragged decode_planes)", ("rans_decode",)):
+        back, t_back = timed(lambda: R.decode_planes(streams, ns))
+    if not all(np.array_equal(a, b) for a, b in zip(back, planes)):
+        raise AssertionError("ragged decode_planes: planes differ")
+    del back
+    lengths = sorted(set(ns))
+    rows.append({"row": "ragged planes", "planes": len(planes),
+                 "encode_planes_s": t_rag, "decode_planes_s": t_back,
+                 "encode_planes_device_8_s": t_dev})
+    log(f"remaining (ragged encode_planes / decode_planes): {len(planes)} "
+        f"planes of lengths {lengths}, every stream byte-identical to "
+        f"native.encode_plane(p, coder=1) (the empty plane b''), decode "
+        f"gives the planes back; wall s [{card}]: encode_planes "
+        f"{t_rag:.4f}, decode_planes {t_back:.4f}; encode_planes_device "
+        f"on the 8 planes at {TOLS[0]:g} {t_dev:.4f}")
+    del planes
+
+    eight = streams[:8]
+    with launches.row("remaining (decode_compute_seconds)",
+                      ("rans_decode",)):
+        probe = R.decode_compute_seconds(eight, n)
+    del streams, eight
+    rows.append({"row": "decode_compute_seconds", "probe_ms": probe * 1e3,
+                 "phase2_rans_decode_ms": h_ms})
+    log(f"remaining (decode_compute_seconds): the 8 streams at "
+        f"{TOLS[0]:g}, {probe * 1e3:.3f} ms; phase 2's kernel H on the "
+        f"same planes {h_ms:.3f} ms (device time) [{card}]")
+    torch.cuda.empty_cache()
+
+    rows += libwaverange_rows(card, fld, natives)
+
+    # dryrun_multichip(1) in a world of one on NCCL made here, so that its
+    # launches are counted in this process
+    build = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        PD.init_distributed(init_method=f"file://{tmp}/store", world_size=1,
+                            rank=0, local_rank=0, device="cuda")
+        try:
+            with launches.row("remaining (dryrun_multichip(1), NCCL)",
+                              A_TO_D):
+                res, t_dry = timed(lambda: GE.dryrun_multichip(1))
+        finally:
+            dist.destroy_process_group()
+    rows.append({"row": "dryrun_multichip(1)", "wall_s": t_dry,
+                 "err": res.err, "nlay": res.nlay, "nlay2": res.nlay2})
+    log(f"remaining (dryrun_multichip(1), a world of one on NCCL): err "
+        f"{res.err:.3e}, united nlay {res.nlay}, distributed nlay "
+        f"{res.nlay2}, both byte-equal to the single-device encode; wall s "
+        f"[{card}]: {t_dry:.4f} (NCCL's setup in it)")
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     try:
+        from waverange_tpu_torch import utils
         from waverange_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -1234,10 +1494,16 @@ def main():
     t0 = time.perf_counter()
     parallel = phase_parallel(card, fld, natives, counts)
     log(f"parallel: phase 5 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    remaining = phase_remaining(card, fld, natives, times["rans_decode"][0],
+                                counts)
+    log(f"remaining: phase 6 took {time.perf_counter() - t0:.1f} s")
     del natives
+    log("stage timings of the codec (utils.get_timings), phases 3-6: "
+        + json.dumps(utils.get_timings()))
     launches = counts.total
-    log(f"kernel launches on the main paths, entry and parallel rows: "
-        f"{launches}")
+    log(f"kernel launches on the main paths, entry, parallel and remaining "
+        f"rows: {launches}")
 
     rk = "waverange_tpu/ops/rans_kernels.py"
     replaces = {
@@ -1267,7 +1533,8 @@ def main():
                 "bound_by": bounds[k][1], "library_ms": None}
                for k in replaces]
     log(json.dumps({"card": card, "main_path": rows,
-                    "entry_points": entry_rows, "parallel": parallel}))
+                    "entry_points": entry_rows, "parallel": parallel,
+                    "remaining": remaining}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

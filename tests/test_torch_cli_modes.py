@@ -133,13 +133,22 @@ def test_dispatcher_runs_the_tools(tmp_path, monkeypatch):
     assert np.abs(rec - a).max() <= 1.3e-9 * np.abs(a).max()
 
 
-def test_dispatcher_lists_six_tools(capsys):
+def test_dispatcher_lists_seven_tools(capsys, tmp_path, monkeypatch):
     assert dispatcher.main(["--help"]) == 0
     out = capsys.readouterr().out
     assert all(t in out for t in ("wrenc", "wrdec", "flusi-enc", "flusi-dec",
-                                  "mssg-enc", "mssg-dec"))
-    assert "bench" not in out and "build-lib" not in out
+                                  "mssg-enc", "mssg-dec", "build-lib"))
+    assert "bench" not in out
     assert dispatcher.main(["bench"]) == 2
+    # build-lib, with its default directory pointed at tmp_path
+    from waverange_tpu_torch.native import libwaverange
+    monkeypatch.setattr(libwaverange, "DEFAULT_DIR", tmp_path)
+    capsys.readouterr()
+    assert dispatcher.main(["build-lib"]) == 0
+    assert capsys.readouterr().out.strip() == str(tmp_path / "lib")
+    assert {p.name for p in (tmp_path / "lib").iterdir()} == {
+        "libwaverange.so", "libwaverange.a"}
+    assert (tmp_path / "include" / "waverange.h").is_file()
 
 
 def test_tools_run_on_cuda_by_default(tmp_path, monkeypatch):

@@ -1,7 +1,9 @@
 """CLI dispatcher: `python -m waverange_tpu_torch <tool> [args...]`.
 
-The tools of `waverange_tpu.__main__` that run the codec; WR_BACKEND and
-WR_DEVICE choose where (see `cli`).
+The tools of `waverange_tpu.__main__` but `bench`: the six that run the
+codec, where WR_BACKEND and WR_DEVICE choose where (see `cli`), and
+`build-lib [DEST]`, which builds the drop-in libwaverange
+(`native.libwaverange`) and prints its lib directory.
 """
 import importlib
 import sys
@@ -13,6 +15,7 @@ TOOLS = {
     "flusi-dec": ("cli.flusi_dec", "FluSI HDF5 decoder"),
     "mssg-enc": ("cli.mssg_enc", "MSSG encoder (regular/united/divided)"),
     "mssg-dec": ("cli.mssg_dec", "MSSG decoder"),
+    "build-lib": ("native.libwaverange", "build drop-in libwaverange"),
 }
 
 

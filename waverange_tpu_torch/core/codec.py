@@ -27,6 +27,11 @@ identical to the native decoder.
 
 There is no implicit device: the default is "cuda", which fails where no
 CUDA device is available.
+
+Each backend's encode and decode is timed as a stage of `utils.diag`
+(`encode.torch`, `encode.exact64`, `encode.native`, `encode.native.f32`,
+`decode.torch`, `decode.exact64`, `decode.native`); WR_VERBOSE=1 prints
+each stage's time.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import torch
 from .. import native as wn
 from ..ops import rans
 from ..ops.quant import decode_step, encode_step
+from ..utils import timed
 
 # f32 quantization floors at a few ulp of 2^-24: below this relative
 # tolerance precision="native" on a device cannot meet the error contract
@@ -184,12 +190,14 @@ def encode_field(fld: np.ndarray, tolrel: float, wtflag: int = 1, *,
                 and backend != "exact64")
     if backend == "native":
         if keep_f32:
-            meta = wn.encode_field_f32(fld, tolrel, wtflag=wtflag,
-                                       coder=cid, cutoff=cutoff, mx=mx,
-                                       my=my, mz=mz)
+            with timed("encode.native.f32"):
+                meta = wn.encode_field_f32(fld, tolrel, wtflag=wtflag,
+                                           coder=cid, cutoff=cutoff, mx=mx,
+                                           my=my, mz=mz)
         else:
-            meta = wn.encode_field(fld, wtflag=wtflag, cutoff=cutoff,
-                                   mx=mx, my=my, mz=mz, coder=cid)
+            with timed("encode.native"):
+                meta = wn.encode_field(fld, wtflag=wtflag, cutoff=cutoff,
+                                       mx=mx, my=my, mz=mz, coder=cid)
         return _record(meta, fld.shape, cid)
     cutoff = np.asarray(cutoff, np.float64).ravel()
     if cutoff.size != 1:
@@ -207,13 +215,17 @@ def encode_field(fld: np.ndarray, tolrel: float, wtflag: int = 1, *,
         keep_f32 = False
     if backend == "exact64":
         from .exact64 import encode_field_exact64
-        meta = encode_field_exact64(fld, tolrel, wtflag=wtflag, coder=cid,
-                                    entropy=entropy, device=device)
+        with timed("encode.exact64"):
+            meta = encode_field_exact64(fld, tolrel, wtflag=wtflag,
+                                        coder=cid, entropy=entropy,
+                                        device=device)
     else:
-        meta = encode_device(
-            np.ascontiguousarray(fld, np.float32 if keep_f32
-                                 else np.float64),
-            tolrel, wtflag, WAV_LVL, cid, entropy, _device(device))
+        dev = _device(device)
+        with timed("encode.torch"):
+            meta = encode_device(
+                np.ascontiguousarray(fld, np.float32 if keep_f32
+                                     else np.float64),
+                tolrel, wtflag, WAV_LVL, cid, entropy, dev)
     return _record(meta, fld.shape, cid)
 
 
@@ -288,12 +300,16 @@ def decode_field(enc: EncodedField, *, backend: str = "torch",
                          "'exact64' and a turbo (v2) stream")
     meta = record_meta(enc)
     if backend == "native":
-        return wn.decode_field(meta, enc.shape_zyx, coder=cid)
+        with timed("decode.native"):
+            return wn.decode_field(meta, enc.shape_zyx, coder=cid)
     if backend == "exact64":
         from .exact64 import decode_field_exact64
-        return decode_field_exact64(meta, enc.shape_zyx, coder=cid,
-                                    entropy=entropy, device=device)
-    return decode_device(meta, enc.shape_zyx, cid, entropy, _device(device))
+        with timed("decode.exact64"):
+            return decode_field_exact64(meta, enc.shape_zyx, coder=cid,
+                                        entropy=entropy, device=device)
+    dev = _device(device)
+    with timed("decode.torch"):
+        return decode_device(meta, enc.shape_zyx, cid, entropy, dev)
 
 
 def record_meta(enc) -> dict:

@@ -16,6 +16,12 @@ Where the port differs from the JAX `exact64`, it follows native:
   * the codec passes a uniform `cutoff` in place of `tolrel`, as native
     takes it; the JAX codec gives `exact64` `tolrel` only
     (waverange_tpu/core/codec.py:193-195).
+
+The codec times this backend as the stages `encode.exact64` and
+`decode.exact64` (`utils.diag`). The JAX `exact64` also times its inner
+stages (`exact64.pack_upload`, `.wavelet`, `.layers`, `.entropy`,
+waverange_tpu/core/exact64.py:134-170); they time the software-f64 work,
+which has no counterpart here, so they are not mirrored.
 """
 from __future__ import annotations
 

@@ -75,6 +75,8 @@ def get_lib() -> ct.CDLL:
         lib.wrn_mask_separate.restype = ct.c_double
         lib.wrn_mask_separate.argtypes = [f64p, f64p, u64, ct.c_double,
                                           ct.c_double]
+        lib.wrn_pool_trim.restype = None
+        lib.wrn_pool_trim.argtypes = []
         lib.wrn_pool_warm.restype = None
         lib.wrn_pool_warm.argtypes = [u64, ct.c_int]
         _lib = lib
@@ -84,6 +86,12 @@ def get_lib() -> ct.CDLL:
 # encode overflow sentinel from the C ABI (encoded size exceeded the
 # setup_wr safety-buffer contract; see wr_native.cc encode_layers)
 _ENC_OVERFLOW = 2**64 - 1
+
+
+def pool_trim() -> None:
+    """Release the library's process-wide buffer pool (the recycled pages
+    a large-field batch leaves mapped)."""
+    get_lib().wrn_pool_trim()
 
 
 def pool_warm(n: int, slots: int = 0) -> None:

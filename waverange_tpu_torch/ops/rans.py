@@ -1,9 +1,11 @@
 """Device-side turbo (format v2) interleaved-rANS entropy coder on torch.
 
 Port of `waverange_tpu.ops.rans` (`encode_planes_device`,
-`decode_planes_device`). The format oracle is the C++ turbo coder of
-`waverange_tpu_torch.native` (wr_native.cc `turbo::encode_plane_t`,
-`turbo::decode_plane_t`): streams made here are byte-identical to it.
+`decode_planes_device`, the ragged `encode_planes` / `decode_planes` and
+the probe `decode_compute_seconds`). The format oracle is the C++ turbo
+coder of `waverange_tpu_torch.native` (wr_native.cc
+`turbo::encode_plane_t`, `turbo::decode_plane_t`): streams made here are
+byte-identical to it.
 
 Format v2, one stream per byte plane: the plane is cut into blocks of
 TBLOCK = 65536 symbols (the last one shorter when n % 65536 != 0). Every
@@ -39,6 +41,7 @@ and u16 values as the bits of int32 and int16 tensors.
 """
 from __future__ import annotations
 
+import time
 import warnings
 from typing import NamedTuple
 
@@ -693,6 +696,89 @@ def decode_planes_device(streams, n: int, device="cuda",
     table = parse_planes(streams, lens, n)
     return decode_blocks(bytes_tensor(streams).to(dev),
                          torch.from_numpy(table).to(dev), L, n)
+
+
+# ----------------------------------------------------------------------------
+# The ragged plane API: planes of any lengths, one stream each.
+# ----------------------------------------------------------------------------
+def _by_length(ns) -> dict:
+    """Input positions grouped by length, in first-seen order."""
+    groups: dict = {}
+    for i, n in enumerate(ns):
+        groups.setdefault(int(n), []).append(i)
+    return groups
+
+
+def encode_planes(planes, device="cuda") -> list[bytes]:
+    """Encode 1-D uint8 planes of any lengths (0 included) to one format-v2
+    stream each, in input order; an empty plane gives b"".
+
+    Byte-identical to `native.encode_plane(p, coder=1)` per plane (the
+    ragged `encode_planes` of `waverange_tpu.ops.rans`). The planes of
+    one length go to `device` as one fresh contiguous (k, n) upload and
+    through `encode_planes_device` (E, F, G on a CUDA device): no plane
+    is padded to another's length.
+    """
+    from ..core.codec import _device
+    dev = _device(device)
+    host = [np.ascontiguousarray(p, np.uint8).ravel() for p in planes]
+    out = [b""] * len(host)
+    for n, idx in _by_length(p.size for p in host).items():
+        if n == 0:
+            continue
+        group = torch.from_numpy(np.stack([host[i] for i in idx])).to(dev)
+        for i, s in zip(idx, encode_planes_device(group, n)):
+            out[i] = s
+        del group
+    return out
+
+
+def decode_planes(streams, ns, device="cuda") -> list[np.ndarray]:
+    """Decode format-v2 streams, stream i to `ns[i]` uint8 symbols, in input
+    order (the ragged `decode_planes` of `waverange_tpu.ops.rans`).
+
+    Byte-identical to `native.decode_plane(s, n, coder=1)`. The streams of
+    one length are decoded together by `decode_planes_device` (kernel H on
+    a CUDA device); corrupt framing raises the ValueErrors of
+    `parse_planes`.
+    """
+    from ..core.codec import _device
+    dev = _device(device)
+    if len(streams) != len(ns):
+        raise ValueError(f"{len(streams)} streams for {len(ns)} lengths")
+    out = [np.empty(0, np.uint8)] * len(ns)
+    for n, idx in _by_length(ns).items():
+        if n == 0:
+            continue
+        syms = decode_planes_device([streams[i] for i in idx], n,
+                                    device=dev).cpu().numpy()
+        for i, row in zip(idx, syms):
+            out[i] = row
+    return out
+
+
+def decode_compute_seconds(streams, n: int, device="cuda") -> float:
+    """The device decode alone, in seconds (the compute-only probe of
+    `waverange_tpu.ops.rans`): L streams of n symbols are parsed and
+    uploaded once, decoded once to warm up, then `decode_blocks` is timed
+    on the resident inputs. On a CUDA device the time is taken between
+    two synchronizes, so neither the kernels' build nor the parse is in
+    it; on the CPU it times the plain version.
+    """
+    from ..core.codec import _device
+    dev = _device(device)
+    lens = [len(s) for s in streams]
+    data = b"".join(bytes(s) for s in streams)
+    table = parse_planes(data, lens, n)
+    data_d = bytes_tensor(data).to(dev)
+    table_d = torch.from_numpy(table).to(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    decode_blocks(data_d, table_d, len(lens), n)
+    sync()
+    t0 = time.perf_counter()
+    decode_blocks(data_d, table_d, len(lens), n)
+    sync()
+    return time.perf_counter() - t0
 
 
 def bytes_tensor(data) -> torch.Tensor:

@@ -18,6 +18,7 @@ local.
 from __future__ import annotations
 
 import os
+from datetime import timedelta
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -31,13 +32,16 @@ def init_distributed(init_method: Optional[str] = None,
                      world_size: Optional[int] = None,
                      rank: Optional[int] = None,
                      local_rank: Optional[int] = None,
-                     device="cuda") -> None:
+                     device="cuda",
+                     timeout: Optional[float] = None) -> None:
     """Join this process to the default group, from the arguments or from
     torchrun's variables (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR /
     MASTER_PORT). Does nothing when neither gives a world.
 
     `device` picks the backend: "cuda" runs NCCL, with this process on
-    `cuda:LOCAL_RANK`; "cpu" runs gloo."""
+    `cuda:LOCAL_RANK`; "cpu" runs gloo. `timeout`, in seconds, bounds the
+    rendezvous and every collective of the group (torch's default when
+    None)."""
     dev = torch.device(device)
     if dev.type not in _BACKENDS:
         raise ValueError(f"unsupported device {device!r}")
@@ -55,8 +59,9 @@ def init_distributed(init_method: Optional[str] = None,
             raise RuntimeError("device 'cuda' requested but CUDA is not "
                                "available")
         torch.cuda.set_device(local_rank)
+    kw = {} if timeout is None else {"timeout": timedelta(seconds=timeout)}
     dist.init_process_group(_BACKENDS[dev.type], init_method=init_method,
-                            world_size=world_size, rank=rank)
+                            world_size=world_size, rank=rank, **kw)
 
 
 class World:
