@@ -15,7 +15,7 @@ Phases:
      transforms, on shapes that cross tile edges in every direction and
      on a line of 60,001 values), the measured `copy_` rate of a 1 GiB
      tensor as the card's practical ceiling, the
-     rANS kernels E-H at sizes 1, 9, 65537 and 200001, on the `steal`,
+     rANS kernels E-I at sizes 1, 9, 65537 and 200001, on the `steal`,
      `constant` and `uniform` (raw escape) distributions, on multi-plane
      batches, on rows that start off a 16-byte boundary and blocks of 5
      and 13 bytes, and on the 8 real byte planes of the 512^3 field at
@@ -30,7 +30,8 @@ Phases:
      `coder="rans", entropy="device"`, through kernels A-H,
      byte-identical to the native turbo codec; the time split of each,
      with the device-entropy encode split into E, F, the layout sync, G
-     and the raw-block gather.
+     and I (the frames written on the card), and the one copy of the
+     streams to the host.
      The native codec is the port's own copy (`waverange_tpu_torch.
      native`), built here from the repository's sources;
   4. the entry points, each row with the launch counts set to 0 just
@@ -80,7 +81,8 @@ Phases:
   7. the benchmark (`waverange_tpu_torch.bench`), each row with the launch
      counts set to 0 just before it and read just after: the slab
      pipelines `bench_cuda_hybrid` (A, C; D, B, the host range coder
-     between) and `bench_cuda_full` (A, C, E, F, G; H, D, B) on the
+     between) and `bench_cuda_full` (A, C, E, F, G, its warm-up I; H, D,
+     B) on the
      phase-3 field at tol 1e-16 and 1e-7, every slab's record
      byte-identical to `native.encode_field(slab)` with the same coder and
      its error within the contract; `verify_on_chip` and `margin_envelope`
@@ -435,9 +437,10 @@ def rans_cases(rng):
 
 
 def check_rans(check, planes, n, what):
-    """Kernels E-H on the card against their plain versions on the same
-    inputs on the card, bitwise, and the streams against the native turbo
-    coder. Returns the inputs of each kernel for timing."""
+    """Kernels E-I on the card against their plain versions on the same
+    inputs on the card, bitwise, I also against the host framing, and the
+    streams against the native turbo coder. Returns the inputs of each
+    kernel for timing."""
     import torch
     from waverange_tpu_torch import native as wn
     from waverange_tpu_torch.ops import rans as R
@@ -459,12 +462,23 @@ def check_rans(check, planes, n, what):
     check("rans_chain", what + " words", slab.masked_fill(undef, 0), slab_p)
     del slab_p, undef, x_fin_p, nwords_p
     nsym_h, nwords_h = torch.stack([nsym, nwords]).cpu().numpy()
-    _, wl, dest = R.block_layout(R.plane_bs(L, n), nsym_h, nwords_h)
-    dest = torch.from_numpy(dest).cuda()
+    tags, wl, dest_h = R.block_layout(R.plane_bs(L, n), nsym_h, nwords_h)
+    dest = torch.from_numpy(dest_h).cuda()
     total = int(wl.sum())
-    check("rans_compact", what, RC.rans_compact(x_fin, slab, nwords, dest,
-                                                total),
+    payload = RC.rans_compact(x_fin, slab, nwords, dest, total)
+    check("rans_compact", what, payload,
           R.compact_plain(x_fin, slab, nwords, dest, total))
+    ftab, lens = R.frame_table(L, n, tags, wl, dest_h)
+    ftab = torch.from_numpy(ftab).cuda()
+    nbytes = int(lens.sum())
+    frames = RC.rans_frame(planes, etab, payload, ftab, nbytes)
+    check("rans_frame", what, frames,
+          R.frame_plain(planes, etab, payload, ftab, nbytes))
+    host = b"".join(R.frame(R.fetch(R.encode_blocks(planes, n))))
+    if frames.cpu().numpy().tobytes() != host:
+        raise AssertionError(f"rans_frame: {what}: frames differ from the "
+                             "host framing")
+    del host
     streams = R.encode_planes_device(planes, n)
     host = planes.cpu().numpy()
     for i, (got, p) in enumerate(zip(streams, host)):
@@ -480,11 +494,12 @@ def check_rans(check, planes, n, what):
     check("rans_decode", what + " round trip", out, planes)
     torch.cuda.synchronize()
     return dict(etab=etab, slab=slab, x_fin=x_fin, nwords=nwords, dest=dest,
-                total=total, data=data, table=table)
+                total=total, data=data, table=table, payload=payload,
+                ftab=ftab, nbytes=nbytes)
 
 
 def phase_rans(card, check, fld):
-    """Kernels E-H against their plain versions: the synthetic cases, then
+    """Kernels E-I against their plain versions: the synthetic cases, then
     the 8 byte planes of the main field at 1e-16, where they are timed."""
     import torch
     from waverange_tpu_torch.ops import quant as Q
@@ -533,16 +548,24 @@ def phase_rans(card, check, fld):
             cuda_ms(lambda: RC.rans_decode(a["data"], a["table"], L, n)),
             cuda_ms(lambda: R.decode_blocks_plain(a["data"], a["table"], L,
                                                   n), reps=2)),
+        "rans_frame": (
+            cuda_ms(lambda: RC.rans_frame(planes, a["etab"], a["payload"],
+                                          a["ftab"], a["nbytes"])),
+            cuda_ms(lambda: R.frame_plain(planes, a["etab"], a["payload"],
+                                          a["ftab"], a["nbytes"]), reps=2)),
     }
     # bytes and operations of this data: F writes each block's words (a
     # raw block's only up to its slab) and does 8 i32 operations a symbol
     # (lookup, compare, renormalizing shift, multiply-high, add, shift,
     # multiply-add, add); G moves the modeled blocks' payloads; H reads the
-    # stream and writes the planes, with 8 operations a modeled symbol.
+    # stream and writes the planes, with 8 operations a modeled symbol; I
+    # reads a 4 x i64 row a block, the raw blocks' bytes, the modeled
+    # blocks' models (1 KB) and payloads, and writes the stream.
     B, N = a["nwords"].numel(), L * n
     nw = a["nwords"].long()
     modeled = a["dest"] >= 0
     tags = a["table"][:, 0]
+    bs_d = torch.from_numpy(R.plane_bs(L, n)).cuda()
     bounds = {
         "rans_hist": bound(N + B * (1024 + 4), N, I32_OPS_S),
         "rans_chain": bound(N + B * (1024 + 32 + 4)
@@ -552,8 +575,10 @@ def phase_rans(card, check, fld):
                               + 32 * int(modeled.sum()) + 12 * B
                               + 2 * a["total"], 0, I32_OPS_S),
         "rans_decode": bound(a["data"].numel() + 24 * B + N,
-                             8 * int(torch.tensor(R.plane_bs(L, n)).cuda()[
-                                 tags == 0].sum()), I32_OPS_S),
+                             8 * int(bs_d[tags == 0].sum()), I32_OPS_S),
+        "rans_frame": bound(32 * B + int(bs_d[tags == 1].sum())
+                            + 1024 * int(modeled.sum()) + 2 * a["total"]
+                            + a["nbytes"], 0, I32_OPS_S),
     }
     for k in times:
         log(f"check {k}: {check.count[k]} comparisons bitwise equal")
@@ -657,7 +682,7 @@ def make_field(n, rng):
 
 
 A_TO_D = ("lift_fwd_axis", "lift_inv_axis", "quant_layer", "accumulate")
-E_TO_G = ("rans_hist", "rans_chain", "rans_compact")
+E_TO_G = ("rans_hist", "rans_chain", "rans_compact", "rans_frame")
 A_TO_H = A_TO_D + E_TO_G + ("rans_decode",)
 
 # The two main paths: (name, encode_field and decode_field keywords, native
@@ -704,11 +729,10 @@ def split_host(fld, tol):
             "device_decode_s": d[6], "d2h_field_s": d[7]}
 
 
-def encode_blocks_split(planes, n):
-    """`rans.encode_blocks` with the host clock read after each of its
-    steps, after a synchronize: E, F, the sync for the layout, G, the
-    raw-block gather. Returns the EncodedBlocks and the step times
-    (seconds)."""
+def code_blocks_split(planes, n):
+    """`rans.code_blocks` with the host clock read after each of its
+    steps, after a synchronize: E, F, the sync for the layout, G. Returns
+    the CodedBlocks and the step times (seconds)."""
     import torch
     from waverange_tpu_torch.ops import rans as R
 
@@ -720,7 +744,7 @@ def encode_blocks_split(planes, n):
         times[f"enc_{step}_s"] = now - last[0]
         last[0] = now
 
-    return R.encode_blocks(planes, n, mark), times
+    return R.code_blocks(planes, n, mark), times
 
 
 def split_device(fld, tol):
@@ -738,15 +762,17 @@ def split_device(fld, tol):
     planes, deps, minv, nlay, *_ = Q.encode_step(x, tol)
     nl = int(nlay)
     s.append(time.perf_counter())
-    enc, e = encode_blocks_split(planes[:nl], n)
+    c, e = code_blocks_split(planes[:nl], n)
     s.append(time.perf_counter())
-    enc = R.fetch(enc)
+    ftab, lens = R.frame_table(nl, n, c.tags, c.wl, c.dest)
+    buf = R.frame_blocks(planes[:nl], c.etab, c.payload,
+                         torch.from_numpy(ftab).cuda(), int(lens.sum()))
+    torch.cuda.synchronize()
     s.append(time.perf_counter())
-    streams = R.frame(enc)
-    data = b"".join(streams)
+    data = buf.cpu().numpy().tobytes()
     s.append(time.perf_counter())
-    del x, planes, enc
-    table = R.parse_planes(data, [len(t) for t in streams], n)
+    del x, planes, c, buf
+    table = R.parse_planes(data, lens, n)
     s.append(time.perf_counter())
     data_d = R.bytes_tensor(data).cuda()
     table_d = torch.from_numpy(table).cuda()
@@ -764,8 +790,8 @@ def split_device(fld, tol):
     d = np.diff(s)
     del pd, out
     return {"h2d_field_s": d[0], "device_encode_s": d[1],
-            "device_entropy_encode_s": d[2], **e, "d2h_compressed_s": d[3],
-            "host_framing_s": d[4], "host_parse_s": d[5],
+            "device_entropy_encode_s": d[2], **e, "device_framing_s": d[3],
+            "d2h_compressed_s": d[4], "host_parse_s": d[5],
             "h2d_compressed_s": d[6], "device_entropy_decode_s": d[7],
             "device_decode_s": d[8], "d2h_field_s": d[9],
             "compressed_bytes": len(data)}
@@ -1637,6 +1663,9 @@ def main():
         "rans_chain": f"{rk}:163; {rk}:277",
         "rans_compact": f"{rk}:417",
         "rans_decode": f"{rk}:700",
+        "rans_frame": "no TPU kernel: a device stage in place of the host "
+                      "framing, waverange_tpu/ops/rans.py:281 "
+                      "(_assemble_blocks)",
     }
     source = {"lift_fwd_axis": "waverange_tpu_torch/csrc/lift.cu",
               "lift_inv_axis": "waverange_tpu_torch/csrc/lift.cu",
@@ -1645,7 +1674,8 @@ def main():
               "rans_hist": "waverange_tpu_torch/csrc/rans.cu",
               "rans_chain": "waverange_tpu_torch/csrc/rans.cu",
               "rans_compact": "waverange_tpu_torch/csrc/rans.cu",
-              "rans_decode": "waverange_tpu_torch/csrc/rans.cu"}
+              "rans_decode": "waverange_tpu_torch/csrc/rans.cu",
+              "rans_frame": "waverange_tpu_torch/csrc/rans.cu"}
     # no single PyTorch call computes any of these functions (PERF.md)
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k], "launches": launches[k],

@@ -153,8 +153,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         16),
     lambda: rans_cuda.rans_decode(torch.zeros(8, dtype=torch.uint8),
                                   torch.zeros((1, 3), dtype=torch.int64), 1,
-                                  9)],
-    ids=["rans_hist", "rans_chain", "rans_compact", "rans_decode"])
+                                  9),
+    lambda: rans_cuda.rans_frame(torch.zeros((1, 9), dtype=torch.uint8),
+                                 torch.zeros((1, 256), dtype=torch.int32),
+                                 torch.zeros(0, dtype=torch.int16),
+                                 torch.zeros((1, 4), dtype=torch.int64), 2)],
+    ids=["rans_hist", "rans_chain", "rans_compact", "rans_decode",
+         "rans_frame"])
 def test_rans_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()

@@ -423,12 +423,12 @@ def test_misaligned_row_view_is_copied_before_the_kernels(n, monkeypatch):
     view = planes[1:]
     assert view.data_ptr() % 16
     seen = []
-    encode_blocks = R.encode_blocks
+    code_blocks = R.code_blocks
 
     def spy(p, n_, mark=None):
         seen.append(p.data_ptr() % 16)
-        return encode_blocks(p, n_, mark)
-    monkeypatch.setattr(R, "encode_blocks", spy)
+        return code_blocks(p, n_, mark)
+    monkeypatch.setattr(R, "code_blocks", spy)
     streams = R.encode_planes_device(view, n)
     assert seen == [0]
     assert streams == [wn.encode_plane(p.numpy(), coder=1) for p in view]

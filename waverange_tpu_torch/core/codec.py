@@ -246,10 +246,7 @@ def encode_device(arr: np.ndarray, tolrel: float, wtflag: int, levels: int,
         return meta
     planes = step[0][:nl]
     if entropy == "device":
-        streams = rans.encode_planes_device(planes, planes.shape[1])
-        with timed("encode.join"):
-            payload = b"".join(streams)
-        lens = np.array([len(s) for s in streams], np.uint64)
+        payload, lens = rans.encode_planes_joined(planes, planes.shape[1])
     else:
         payload, lens = wn.encode_planes_batch(planes.cpu().numpy(),
                                                coder=cid)

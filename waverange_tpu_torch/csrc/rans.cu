@@ -1,4 +1,4 @@
-// Format-v2 interleaved-rANS entropy stage (kernels E, F, G and H).
+// Format-v2 interleaved-rANS entropy stage (kernels E, F, G, H and I).
 //
 // Byte-format oracle: turbo::encode_plane_t / decode_plane_t in
 // waverange_tpu/native/src/wr_native.cc. The planes are (L, n) u8, row
@@ -94,6 +94,20 @@
 //   per SM), no spills. What bounds it now: the dependent chain of each
 //   step (bucket load, table load, ballot, refill load); the modeled
 //   blocks, 6,910 of 16,384 at 1e-16, give an SM only about 13 warps.
+// I `rans_frame_kernel` has no TPU counterpart: it replaces the host's
+//   framing (waverange_tpu/ops/rans.py `_assemble_blocks`, this package's
+//   `rans.frame`) and the gather of the raw blocks' bytes. One CUDA block
+//   per rANS block writes the block's whole frame at the byte offset the
+//   host computed from the layout sync: the tag; for a constant block its
+//   symbol (the block's first); for a raw block its bs bytes, straight
+//   from the planes; for a modeled block the 256 LE u16 frequencies of
+//   E's model, the LE u32 payload length and G's payload bytes. The L
+//   streams thus leave the card back to back in one buffer, one copy.
+//   The frames start at any byte (the 1-byte tags shift the parity), so
+//   the copies store 16 bytes at a time between the destination's aligned
+//   ends, each piece from aligned 4-byte loads of the source,
+//   funnel-shifted, and bytes outside them one by one. Bound by bytes:
+//   the stream is written once and read about once.
 //
 // All arithmetic is u32 with C++ wrap-around (f << 18 wraps to 0 for
 // f = 16384: constant blocks, whose chain output is never used).
@@ -117,6 +131,7 @@ constexpr int kHistUnroll = 4;  // E's 16-byte loads in flight per thread
 constexpr int kChainThreads = 128;
 constexpr int kSegs = kChainThreads / kLanes;  // rANS blocks per CUDA block
 constexpr int kCompactThreads = 256;
+constexpr int kFrameThreads = 256;  // thread t writes frequency t
 constexpr int kHeader = 516;    // u16 freqs[256] + u32 payload_len
 constexpr int kStateBytes = 32;  // 8 LE u32 lane states
 // F's symbols and H's payload are staged in chunks of kChunk bytes (a
@@ -589,6 +604,64 @@ __global__ void __launch_bounds__(kChainThreads)
   }
 }
 
+// The CUDA block copies src[0:len) to dst[0:len) with 16-byte stores
+// between dst's aligned ends; each 16 bytes come from 4-5 aligned 4-byte
+// loads, funnel-shifted. No byte at or past `src_end` is read, and none
+// before the aligned word that holds src[0].
+__device__ void copy_block(uint8_t* dst, const uint8_t* src, long long len,
+                           const uint8_t* src_end) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  const long long head =
+      min(len, (long long)((16 - (uintptr_t(dst) & 15)) & 15));
+  // a piece at i reads up to src + i + 20 (the 5th word)
+  const long long avail = (src_end - src) - 20;
+  const long long pieces = min((len - head) / 16,
+                               avail >= head ? (avail - head) / 16 + 1 : 0);
+  const long long body = head + 16 * pieces;
+  for (long long i = t; i < head; i += nt) dst[i] = src[i];
+  for (long long i = head + 16 * t; i < body; i += 16 * nt) {
+    const uintptr_t a = uintptr_t(src + i);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~uintptr_t(3));
+    const unsigned r = unsigned(a & 3) * 8;
+    const uint32_t w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3];
+    const uint32_t w4 = r ? w[4] : 0u;
+    *reinterpret_cast<uint4*>(dst + i) = make_uint4(
+        __funnelshift_r(w0, w1, r), __funnelshift_r(w1, w2, r),
+        __funnelshift_r(w2, w3, r), __funnelshift_r(w3, w4, r));
+  }
+  for (long long i = body + t; i < len; i += nt) dst[i] = src[i];
+}
+
+// table (nblocks, 4) i64 = (tag, byte offset of the frame in out, payload
+// offset in words, payload length in words).
+__global__ void __launch_bounds__(kFrameThreads)
+    rans_frame_kernel(const uint8_t* __restrict__ planes, long long n,
+                      long long nb, long long planes_len,
+                      const uint32_t* __restrict__ etab,
+                      const uint8_t* __restrict__ payload, long long pay_len,
+                      const long long* __restrict__ table,
+                      uint8_t* __restrict__ out) {
+  const long long b = blockIdx.x;
+  const long long tag = table[4 * b], boff = table[4 * b + 1];
+  const long long dest = table[4 * b + 2], wl = table[4 * b + 3];
+  const Block blk = block_of(b, n, nb);
+  const int t = threadIdx.x;
+  uint8_t* o = out + boff;
+  if (t == 0) o[0] = uint8_t(tag);
+  if (tag == 2) {  // constant block: its one symbol
+    if (t == 0) o[1] = planes[blk.start];
+  } else if (tag == 1) {  // raw block: bs verbatim bytes
+    copy_block(o + 1, planes + blk.start, blk.bs, planes + planes_len);
+  } else {  // modeled block: u16 freqs, u32 payload length, payload
+    const uint32_t f = etab[b * 256 + t] & 0xFFFFu;
+    o[1 + 2 * t] = uint8_t(f);
+    o[2 + 2 * t] = uint8_t(f >> 8);
+    if (t < 4) o[1 + 2 * 256 + t] = uint8_t(uint32_t(2 * wl) >> (8 * t));
+    copy_block(o + 1 + kHeader, payload + 2 * dest, 2 * wl,
+               payload + pay_len);
+  }
+}
+
 int prologue(int device) {
   return int(cudaSetDevice(device));
 }
@@ -661,6 +734,24 @@ int wr_rans_decode(const void* data, long long data_len, const void* table,
       static_cast<const uint8_t*>(data), data_len,
       static_cast<const long long*>(table), n, (n + kTBlock - 1) / kTBlock,
       nblocks, static_cast<uint8_t*>(out));
+  return int(cudaGetLastError());
+}
+
+// I: every block's frame, tag first, at out[table[b][1]:]; `planes`
+// (16-byte aligned) holds planes_len = L * n bytes, `payload` pay_len
+// bytes of G's output.
+int wr_rans_frame(const void* planes, long long n, long long nblocks,
+                  const void* etab, const void* payload, long long pay_len,
+                  const void* table, void* out, int device, void* stream) {
+  if (n < 1 || nblocks < 1) return int(cudaErrorInvalidValue);
+  if (int err = prologue(device)) return err;
+  const long long nb = (n + kTBlock - 1) / kTBlock;
+  rans_frame_kernel<<<grid_of(nblocks, 1), kFrameThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(planes), n, nb, (nblocks / nb) * n,
+      static_cast<const uint32_t*>(etab),
+      static_cast<const uint8_t*>(payload), pay_len,
+      static_cast<const long long*>(table), static_cast<uint8_t*>(out));
   return int(cudaGetLastError());
 }
 

@@ -117,7 +117,11 @@ def load() -> ct.CDLL:
             # x_fin, slab, nwords, dest, nblocks, out, device, stream
             ("wr_rans_compact", [vp, vp, vp, vp, i64, vp, i32, vp]),
             # data, data_len, table, n, nblocks, out, device, stream
-            ("wr_rans_decode", [vp, i64, vp, i64, i64, vp, i32, vp])):
+            ("wr_rans_decode", [vp, i64, vp, i64, i64, vp, i32, vp]),
+            # planes, n, nblocks, etab, payload, pay_len, table, out,
+            # device, stream
+            ("wr_rans_frame", [vp, i64, i64, vp, vp, i64, vp, vp, i32,
+                               vp])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i32

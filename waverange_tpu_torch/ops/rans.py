@@ -26,11 +26,15 @@ Device pipeline (kernels of `csrc/rans.cu`, wrappers in `rans_cuda`):
   -- one small host sync: (nsym, nwords) per block -> tags and offsets --
   G `rans_compact` lane states + kept words of every modeled block into
                    one u16 buffer at host-computed offsets;
+  -- the host turns the layout into each block's frame offset --
+  I `rans_frame`   every block's frame (tag, model, length, payload; the
+                   raw blocks' bytes straight from the planes) at its
+                   offset in one u8 buffer: the L streams back to back;
   H `rans_decode`  every block of every plane, from the uploaded
                    compressed bytes, into the (L, n) u8 planes.
-The host frames and parses the containers with numpy: a few hundred bytes
-per 64 KiB block. Only compressed bytes, models and raw-block bytes cross
-PCIe.
+The encode copies that one buffer to the host; the decode parses the
+containers with numpy (a few hundred bytes per 64 KiB block) and uploads
+them. Only compressed bytes cross PCIe.
 
 Dispatch goes by the tensor's device, as in `ops.quant`: a CPU tensor
 takes the plain torch version of each kernel, a CUDA tensor the kernel, or
@@ -387,6 +391,69 @@ def compact_plain(x_fin: torch.Tensor, slab: torch.Tensor,
     return out
 
 
+def frame_table(L: int, n: int, tags: np.ndarray, wl: np.ndarray,
+                dest: np.ndarray):
+    """Where kernel I writes each block's frame: (table, lens), with table
+    (L*nb, 4) int64 = (tag, byte offset of the frame, payload offset in
+    words, payload length in words) and lens (L,) int64 the length of
+    each plane's stream. A frame is 2 bytes for tag 2, 1 + bs for tag 1
+    and 1 + 516 + 2*wl for tag 0, back to back in block order."""
+    bs = plane_bs(L, n)
+    size = np.where(tags == 2, 2, np.where(tags == 1, 1 + bs,
+                                           1 + _HEADER + 2 * wl))
+    table = np.stack([tags, np.cumsum(size) - size, dest, wl], 1)
+    return table.astype(np.int64), size.reshape(L, -1).sum(1)
+
+
+def _copy_spans(out: torch.Tensor, dst: torch.Tensor, data: torch.Tensor,
+                src: torch.Tensor, length: torch.Tensor) -> None:
+    """out[dst[i]:dst[i] + length[i]] = data[src[i]:src[i] + length[i]]
+    for every i, 256 spans at a time (bounded index memory)."""
+    for c in range(0, dst.numel(), 256):
+        ln = length[c:c + 256]
+        k = torch.arange(int(ln.max()), device=out.device)[None, :]
+        keep = k < ln[:, None]
+        out[(dst[c:c + 256, None] + k)[keep]] = \
+            data[(src[c:c + 256, None] + k)[keep]]
+
+
+def frame_plain(planes: torch.Tensor, etab: torch.Tensor,
+                payload: torch.Tensor, table: torch.Tensor,
+                total: int) -> torch.Tensor:
+    """Plain version of kernel I: the (total,) uint8 frames of every block
+    of the (L, n) planes at the offsets of the `frame_table` table: the
+    tag; a constant block's symbol (its first); a raw block's bs bytes
+    from the planes; a modeled block's u16 LE frequencies (`etab` &
+    0xFFFF), u32 LE payload length 2*wl and the 2*wl bytes of `payload`
+    (G's int16 words) from word dest."""
+    L, n = planes.shape
+    dev = planes.device
+    nb = num_blocks(n)
+    tag, boff, dest, wl = table.to(dev).unbind(1)
+    b = torch.arange(tag.numel(), device=dev)
+    start = (b // nb) * n + (b % nb) * TBLOCK
+    flat = planes.reshape(-1)
+    out = torch.empty(total, dtype=torch.uint8, device=dev)
+    out[boff] = tag.to(torch.uint8)
+    one = tag == 2
+    out[boff[one] + 1] = flat[start[one]]
+    raw = tag == 1
+    bs = torch.from_numpy(plane_bs(L, n)).to(dev)
+    _copy_spans(out, boff[raw] + 1, flat, start[raw], bs[raw])
+    mod = tag == 0
+    if bool(mod.any()):
+        f = etab[mod].long() & 0xFFFF
+        plen = 2 * wl[mod, None]
+        head = torch.cat([torch.stack([f & 0xFF, f >> 8], 2).flatten(1),
+                          (plen >> torch.arange(0, 32, 8, device=dev))
+                          & 0xFF], 1)
+        out[boff[mod, None] + 1 + torch.arange(_HEADER, device=dev)] = \
+            head.to(torch.uint8)
+        _copy_spans(out, boff[mod] + 1 + _HEADER, payload.view(torch.uint8),
+                    2 * dest[mod], 2 * wl[mod])
+    return out
+
+
 def _models_from_bytes(data: torch.Tensor, off: torch.Tensor):
     """(freqs, cum) int64 (B, 256) of the models stored at byte offsets
     `off` of the uint8 tensor `data`."""
@@ -489,6 +556,13 @@ def compact(x_fin, slab, nwords, dest, total: int) -> torch.Tensor:
     return compact_plain(x_fin, slab, nwords, dest, total)
 
 
+def frame_blocks(planes, etab, payload, table, total: int) -> torch.Tensor:
+    if _cuda_or_cpu(planes):
+        from . import rans_cuda
+        return rans_cuda.rans_frame(planes, etab, payload, table, total)
+    return frame_plain(planes, etab, payload, table, total)
+
+
 def decode_blocks(data: torch.Tensor, table: torch.Tensor, L: int,
                   n: int) -> torch.Tensor:
     if _cuda_or_cpu(data):
@@ -498,12 +572,25 @@ def decode_blocks(data: torch.Tensor, table: torch.Tensor, L: int,
 
 
 # ----------------------------------------------------------------------------
-# Encode: device stages, one host sync, numpy framing.
+# Encode: device stages, one host sync, the frames written on the device.
 # ----------------------------------------------------------------------------
+class CodedBlocks(NamedTuple):
+    """The encode's per-block results before framing: the layout on the
+    host (numpy, per block), the models and the payloads on the planes'
+    device."""
+    L: int
+    n: int
+    tags: np.ndarray        # format tag per block
+    wl: np.ndarray          # payload length in words (modeled blocks)
+    dest: np.ndarray        # payload offset in words (modeled blocks)
+    etab: torch.Tensor      # (L*nb, 256) int32 freq | cum<<16 (E)
+    payload: torch.Tensor   # (sum wl,) int16 payloads back to back (G)
+
+
 class EncodedBlocks(NamedTuple):
-    """The encode's per-block results, before framing: the layout on the
-    host (numpy, per block) and three tensors, on the device until `fetch`
-    copies them to the host."""
+    """The per-block results that the host frames (`frame`): the layout
+    on the host (numpy, per block) and three tensors, on the device until
+    `fetch` copies them to the host."""
     L: int
     n: int
     tags: np.ndarray        # format tag per block
@@ -514,36 +601,53 @@ class EncodedBlocks(NamedTuple):
     raw: torch.Tensor       # uint8 bytes of the raw blocks back to back
 
 
-def encode_planes_device(planes: torch.Tensor, n: int) -> list[bytes]:
-    """Encode (L, n) uint8 planes to L format-v2 streams.
+def encode_planes_joined(planes: torch.Tensor, n: int):
+    """Encode (L, n) uint8 planes to L format-v2 streams, back to back in
+    one `bytes`; returns it and the (L,) int64 stream lengths (the layout
+    of `EncodedField.data`).
 
-    Byte-identical to `native.encode_plane(p, coder=1)` per plane. On a
-    CUDA tensor the symbols never leave the card: kernels E, F and G run
-    there, and only the models, the compacted payloads and the raw
-    blocks' bytes are copied to the host.
+    Each stream is byte-identical to `native.encode_plane(p, coder=1)`. On
+    a CUDA tensor the kernels E, F, G and I run there and one copy brings
+    the streams to the host: the card writes every frame.
     """
     if planes.dim() != 2 or planes.dtype != torch.uint8 \
             or planes.shape[1] != n:
         raise ValueError(f"expected (L, {n}) uint8 planes, got "
                          f"{tuple(planes.shape)} {planes.dtype}")
-    if n == 0 or planes.shape[0] == 0:
-        return [b""] * planes.shape[0]
+    L = planes.shape[0]
+    if n == 0 or L == 0:
+        return b"", np.zeros(L, np.int64)
     planes = planes.contiguous()
     if planes.data_ptr() % 16:  # a row view: F needs a 16-byte aligned base
         planes = planes.clone()
     with timed("encode.entropy"):
-        blocks = encode_blocks(planes, n)
-    with timed("encode.d2h"):
-        blocks = fetch(blocks)
+        c = code_blocks(planes, n)
     with timed("encode.frame"):
-        return frame(blocks)
+        table, lens = frame_table(L, n, c.tags, c.wl, c.dest)
+        buf = frame_blocks(planes, c.etab, c.payload,
+                           torch.from_numpy(table).to(planes.device),
+                           int(lens.sum()))
+        del c
+    with timed("encode.d2h"):
+        return buf.cpu().numpy().tobytes(), lens
 
 
-def encode_blocks(planes: torch.Tensor, n: int, mark=None) -> EncodedBlocks:
+def encode_planes_device(planes: torch.Tensor, n: int) -> list[bytes]:
+    """Encode (L, n) uint8 planes to L format-v2 streams: those of
+    `encode_planes_joined`, one `bytes` each.
+
+    Byte-identical to `native.encode_plane(p, coder=1)` per plane.
+    """
+    data, lens = encode_planes_joined(planes, n)
+    ends = np.cumsum(lens)
+    return [data[e - ln:e] for e, ln in zip(ends.tolist(), lens.tolist())]
+
+
+def code_blocks(planes: torch.Tensor, n: int, mark=None) -> CodedBlocks:
     """The device stage of the encode of non-empty contiguous (L, n)
-    planes: E, F, the one host sync for the data-dependent layout, G, and
-    the gather of the raw blocks' bytes. `mark`, if given, is called with
-    each step's name as it ends (a timer's hook)."""
+    planes: E, F, the one host sync for the data-dependent layout, and G.
+    `mark`, if given, is called with each step's name as it ends (a
+    timer's hook)."""
     mark = mark or (lambda step: None)
     L = planes.shape[0]
     dev = planes.device
@@ -558,14 +662,23 @@ def encode_blocks(planes: torch.Tensor, n: int, mark=None) -> EncodedBlocks:
     payload = compact(x_fin, slab, nwords, torch.from_numpy(dest).to(dev),
                       int(wl.sum()))
     mark("compact")
-    del slab
+    return CodedBlocks(L, n, tags, wl, dest, etab, payload)
+
+
+def encode_blocks(planes: torch.Tensor, n: int, mark=None) -> EncodedBlocks:
+    """`code_blocks`, then the gather of the raw blocks' bytes, for
+    framing on the host (`fetch`, then `frame`)."""
+    mark = mark or (lambda step: None)
+    c = code_blocks(planes, n, mark)
     nb = num_blocks(n)
+    bs = plane_bs(c.L, n)
     raw = torch.cat([planes[b // nb, (b % nb) * TBLOCK:][:bs[b]]
-                     for b in np.nonzero(tags == 1)[0]]
+                     for b in np.nonzero(c.tags == 1)[0]]
                     or [planes.new_empty(0)])
     mark("raw_gather")
-    freqs = (etab & 0xFFFF).to(torch.int16)  # <= 16384: exact
-    return EncodedBlocks(L, n, tags, wl, dest, freqs, payload, raw)
+    freqs = (c.etab & 0xFFFF).to(torch.int16)  # <= 16384: exact
+    return EncodedBlocks(c.L, n, c.tags, c.wl, c.dest, freqs, c.payload,
+                         raw)
 
 
 def fetch(enc: EncodedBlocks) -> EncodedBlocks:
@@ -575,8 +688,9 @@ def fetch(enc: EncodedBlocks) -> EncodedBlocks:
 
 
 def frame(enc: EncodedBlocks) -> list[bytes]:
-    """Per-plane containers from fetched per-block results (rans.py
-    `_assemble_blocks`)."""
+    """Per-plane containers from fetched per-block results, framed on the
+    host (rans.py `_assemble_blocks`): kernel I's function, for a caller
+    that frames on a host thread."""
     freqs = enc.freqs.numpy()
     freq_mv = memoryview(freqs.view(np.uint8).ravel())
     pay_mv = memoryview(enc.payload.numpy().view(np.uint8))
@@ -727,7 +841,7 @@ def encode_planes(planes, device="cuda") -> list[bytes]:
     Byte-identical to `native.encode_plane(p, coder=1)` per plane (the
     ragged `encode_planes` of `waverange_tpu.ops.rans`). The planes of
     one length go to `device` as one fresh contiguous (k, n) upload and
-    through `encode_planes_device` (E, F, G on a CUDA device): no plane
+    through `encode_planes_device` (E, F, G, I on a CUDA device): no plane
     is padded to another's length.
     """
     from ..core.codec import _device

@@ -1,11 +1,12 @@
 """Wrappers of the CUDA rANS kernels E (`rans_hist`), F (`rans_chain`),
-G (`rans_compact`) and H (`rans_decode`) in `csrc/rans.cu`.
+G (`rans_compact`), H (`rans_decode`) and I (`rans_frame`) in
+`csrc/rans.cu`.
 
 Each wrapper checks its tensors, allocates outputs with `torch.empty`,
 launches on the current CUDA stream of the tensors' device, raises on a
 launch error, and adds one to its count in `LAUNCHES`. The plain versions
-are `rans.block_models_plain`, `rans.chain_plain`, `rans.compact_plain` and
-`rans.decode_blocks_plain`; u32 and u16 values travel as the bits of int32
+are `rans.block_models_plain`, `rans.chain_plain`, `rans.compact_plain`,
+`rans.decode_blocks_plain` and `rans.frame_plain`; u32 and u16 values travel as the bits of int32
 and int16 tensors, as there.
 """
 from __future__ import annotations
@@ -17,7 +18,7 @@ from .quant_cuda import _check, _raise_on
 from .rans import SLAB_WORDS, num_blocks
 
 LAUNCHES = {"rans_hist": 0, "rans_chain": 0, "rans_compact": 0,
-            "rans_decode": 0}
+            "rans_decode": 0, "rans_frame": 0}
 
 
 def _need_cuda(name: str, t: torch.Tensor) -> None:
@@ -121,4 +122,27 @@ def rans_decode(data: torch.Tensor, table: torch.Tensor, L: int,
         data.data_ptr(), data.numel(), table.data_ptr(), n, B,
         out.data_ptr(), data.device.index, _stream(data)))
     LAUNCHES["rans_decode"] += 1
+    return out
+
+
+def rans_frame(planes: torch.Tensor, etab: torch.Tensor,
+               payload: torch.Tensor, table: torch.Tensor,
+               total: int) -> torch.Tensor:
+    """Kernel I: the (total,) uint8 frames of every block of the (L, n)
+    planes, each at its byte offset, from E's models `etab`, G's
+    `payload` and the (L*nb, 4) int64 `table` of `rans.frame_table`,
+    which must cover `total` bytes exactly: the kernel trusts it."""
+    n = planes.shape[-1]
+    B = _planes("rans_frame", planes, n)
+    _aligned("rans_frame", planes)
+    dev = planes.device
+    _check("rans_frame", etab, dev, torch.int32, (B, 256))
+    _check("rans_frame", payload, dev, torch.int16, (payload.numel(),))
+    _check("rans_frame", table, dev, torch.int64, (B, 4))
+    out = torch.empty(total, dtype=torch.uint8, device=dev)
+    _raise_on("rans_frame", _build.load().wr_rans_frame(
+        planes.data_ptr(), n, B, etab.data_ptr(), payload.data_ptr(),
+        2 * payload.numel(), table.data_ptr(), out.data_ptr(), dev.index,
+        _stream(planes)))
+    LAUNCHES["rans_frame"] += 1
     return out

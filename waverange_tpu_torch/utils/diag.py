@@ -22,8 +22,8 @@ software-f64 emulation, which the port does not have
 
 The device-entropy path (`entropy="device"`) also times its stages
 inside the backend's, with no synchronize added: `encode.h2d`,
-`encode.step`, `encode.entropy`, `encode.d2h`, `encode.frame` (the
-planes' containers), `encode.join` (their join into one stream) and
+`encode.step`, `encode.entropy`, `encode.frame` (the planes' containers,
+written on the device into one buffer), `encode.d2h` (its copy) and
 `decode.parse`, `decode.h2d`, `decode.entropy`, `decode.step`,
 `decode.d2h`. A stage that only enqueues device work (`decode.entropy`,
 `decode.step`) times the enqueue; the next stage that reads device data
