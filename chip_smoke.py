@@ -23,6 +23,15 @@ Phases:
      times at the main path's shapes (512^3 f64), each kernel's bound
      from the bytes and operations of those inputs, and E's time on the
      planes at 1e-7 and on 8 constant and 8 uniform planes;
+ 2b. the pinned staging ring of the codec's host-card copies
+     (`core.staging`), before the main path: a 1 GiB f64 array and a
+     ragged 70,001,003-byte `bytes` up to the card and back, bitwise
+     equal, each way's GB/s through the ring beside the pageable
+     `.to()` / `.cpu()` it replaces and beside `cudaHostRegister` of the
+     host array with one direct DMA (the ablation), the rate at which
+     1, 2, 4 and 8 host threads fill fresh host memory, and the decode of
+     the 512^3 field at 1e-16 with its fresh result faulted in ahead by
+     0, 1, 2 and 4 host threads (`staging.host_result`), in turns;
   3. the main paths, each with the launch counts set to 0 just before it
      and read just after: `encode_field` / `decode_field` on a 512^3 f64
      field at tol 1e-16 and 1e-7, (a) with the host range coder, through
@@ -31,7 +40,9 @@ Phases:
      byte-identical to the native turbo codec; the time split of each,
      with the device-entropy encode split into E, F, the layout sync, G
      and I (the frames written on the card), and the one copy of the
-     streams to the host.
+     streams to the host; every host-card copy of a field, its planes or
+     the streams in those splits goes through the staging ring, as in
+     the codec.
      The native codec is the port's own copy (`waverange_tpu_torch.
      native`), built here from the repository's sources;
   4. the entry points, each row with the launch counts set to 0 just
@@ -104,6 +115,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -612,6 +624,198 @@ def phase_rans(card, check, fld):
     return times, bounds
 
 
+STAGE_BYTES = 1 << 30        # the staged f64 round trip
+RAGGED_BYTES = 70_001_003    # the staged bytes round trip
+FILL_BYTES = 512 << 20       # the fresh-memory fill rates
+FILL_THREADS = (1, 2, 4, 8)
+
+
+@contextlib.contextmanager
+def host_register(arr):
+    """`arr`'s memory registered (page-locked) with CUDA for
+    the block, unregistered after it."""
+    import torch
+    cudart = torch.cuda.cudart()
+    rc = int(cudart.cudaHostRegister(arr.ctypes.data, arr.nbytes, 0))
+    if rc:
+        raise RuntimeError(f"cudaHostRegister failed: cudaError {rc}")
+    try:
+        yield arr
+    finally:
+        rc = int(cudart.cudaHostUnregister(arr.ctypes.data))
+        if rc:
+            raise RuntimeError(f"cudaHostUnregister failed: cudaError {rc}")
+
+
+def phase_staging(card, fld):
+    """The pinned ring of `core.staging` on the card: a 1 GiB f64 array
+    and a ragged 70,001,003-byte `bytes` up and back down, bitwise, each
+    way timed (host clock to a synchronize, median of 3) through the ring,
+    the pageable `.to()` / `.cpu()` it replaces, and, for the ablation,
+    `cudaHostRegister` of the host array (the caller's source, or the
+    fresh destination) with one DMA straight to or from it; then the rate
+    at which 1, 2, 4 and 8 host threads fill 512 MiB of fresh memory (a
+    numpy array, and a `bytes` from `staging.bytes_buffer`) in the ring's
+    pieces; then `prefault_rows` on the main field."""
+    import torch
+    from waverange_tpu_torch.core import staging as S
+    from waverange_tpu_torch.ops import rans as R
+
+    def clock(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times), out
+
+    t0 = time.perf_counter()
+    S.ring("up")
+    S.ring("down")
+    log(f"staging: the rings ({S.PINNED_BYTES >> 20} MiB pinned, "
+        f"{S.SLOTS} x {S.SLOT_BYTES >> 20} MiB each way, {S.THREADS} host "
+        f"threads) made in {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(SEED)
+    a = rng.standard_normal(STAGE_BYTES // 8)
+    gb = a.nbytes / 1e9
+    rows = {}
+
+    def down_register(x):
+        out = np.empty(x.shape, np.float64)
+        with host_register(out):
+            torch.from_numpy(out).copy_(x, non_blocking=True)
+            torch.cuda.synchronize()
+        return out
+
+    def up_register():
+        with host_register(a):
+            x = torch.from_numpy(a).to("cuda", non_blocking=True)
+            torch.cuda.synchronize()
+        return x
+
+    ways = {"ring": (lambda: S.to_device(a, "cuda"), S.to_numpy),
+            "pageable": (lambda: torch.from_numpy(a).to("cuda"),
+                         lambda x: x.cpu().numpy()),
+            "register": (up_register, down_register)}
+    for way, (up, down) in ways.items():
+        up_s, x = clock(up)
+        down_s, back = clock(lambda: down(x))
+        if not (torch.equal(x, torch.from_numpy(a).cuda())
+                and back.tobytes() == a.tobytes()):
+            raise AssertionError(f"staging: {way}: the 1 GiB f64 round "
+                                 "trip differs")
+        del x, back
+        rows[f"f64_up_{way}_GBps"] = gb / up_s
+        rows[f"f64_down_{way}_GBps"] = gb / down_s
+        log(f"staging [{card}]: 1 GiB f64 round trip {way}, bitwise equal: "
+            f"up {gb / up_s:.3f} GB/s ({up_s:.4f} s), down "
+            f"{gb / down_s:.3f} GB/s ({down_s:.4f} s)")
+    del a
+    torch.cuda.empty_cache()
+
+    data = rng.integers(0, 256, RAGGED_BYTES, dtype=np.uint8).tobytes()
+    gb = RAGGED_BYTES / 1e9
+    ways = {"ring": (lambda: S.to_device(np.frombuffer(data, np.uint8),
+                                         "cuda"), S.to_host_bytes),
+            "pageable": (lambda: R.bytes_tensor(data).to("cuda"),
+                         lambda t: t.cpu().numpy().tobytes())}
+    for way, (up, down) in ways.items():
+        up_s, t = clock(up)
+        down_s, back = clock(lambda: down(t))
+        if not (type(back) is bytes and back == data
+                and t.cpu().numpy().tobytes() == data):
+            raise AssertionError(f"staging: {way}: the {RAGGED_BYTES}-byte "
+                                 "round trip differs")
+        del t, back
+        rows[f"bytes_up_{way}_GBps"] = gb / up_s
+        rows[f"bytes_down_{way}_GBps"] = gb / down_s
+        log(f"staging [{card}]: {RAGGED_BYTES}-byte bytes round trip {way}, "
+            f"bitwise equal: up {gb / up_s:.3f} GB/s, down "
+            f"{gb / down_s:.3f} GB/s")
+    del data
+
+    src = rng.integers(0, 256, FILL_BYTES, dtype=np.uint8)
+    dests = {"numpy": lambda: (None, np.empty(FILL_BYTES, np.uint8)),
+             "bytes": lambda: S.bytes_buffer(FILL_BYTES)}
+    for what, make in dests.items():
+        for k in FILL_THREADS:
+            times = []
+            with ThreadPoolExecutor(k) as pool:
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    keep, dst = make()
+                    S.finish(S.copy_pieces(dst, src, pool))
+                    times.append(time.perf_counter() - t0)
+                    del keep, dst
+            rate = FILL_BYTES / statistics.median(times) / 1e9
+            rows[f"fill_{what}_{k}t_GBps"] = rate
+            log(f"staging [{card}]: fresh-memory fill, {what}, {k} threads: "
+                f"{rate:.3f} GB/s")
+    rows.update(prefault_rows(card, fld))
+    thp = Path("/sys/kernel/mm/transparent_hugepage/enabled")
+    rows["transparent_hugepage"] = (thp.read_text().strip() if thp.exists()
+                                    else "not available")
+    log(f"staging: transparent huge pages: {rows['transparent_hugepage']}")
+    return rows
+
+
+PREFAULT_TRIES = (0, 1, 2, 4)
+
+
+def prefault_rows(card, fld):
+    """The decode of the field's device-rANS record at TOLS[0], as
+    `core.codec.decode_device` runs it, with the fresh result's pages
+    faulted in ahead (`staging.host_result`) by 0 (none: the download
+    faults them), 1, 2 and 4 host threads, in turns, 3 runs each: median
+    host seconds of the whole decode and of its download, each decode
+    bitwise equal to the codec's."""
+    import torch
+    from waverange_tpu_torch.core import codec as tc
+    from waverange_tpu_torch.core import staging as S
+    from waverange_tpu_torch.ops import rans as R
+
+    enc = tc.encode_field(fld, TOLS[0], device="cuda", coder="rans",
+                          entropy="device")
+    want = tc.decode_field(enc, device="cuda", entropy="device")
+    meta, lens = tc.record_meta(enc), enc.len_enc_vec[:enc.nlay]
+    times = {k: ([], []) for k in PREFAULT_TRIES}
+    chosen = S.PREFAULT_THREADS
+    try:
+        for _ in range(3):
+            for k in PREFAULT_TRIES:
+                S.PREFAULT_THREADS = max(k, 1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = S.host_result(fld.shape, np.float64, "cuda") if k \
+                    else None
+                planes = R.decode_planes_device(meta["data"], fld.size,
+                                                device="cuda", lens=lens)
+                field = tc.decode_planes(meta, planes, fld.shape)
+                t1 = time.perf_counter()
+                got = S.to_numpy(field, out)
+                t2 = time.perf_counter()
+                if got.tobytes() != want.tobytes():
+                    raise AssertionError(f"staging: decode with {k} "
+                                         "prefault threads differs")
+                times[k][0].append(t2 - t0)
+                times[k][1].append(t2 - t1)
+                del out, planes, field, got
+    finally:
+        S.PREFAULT_THREADS = chosen
+    rows = {}
+    for k, (dec, d2h) in times.items():
+        rows[f"prefault_{k}t_decode_s"] = statistics.median(dec)
+        rows[f"prefault_{k}t_d2h_s"] = statistics.median(d2h)
+        log(f"staging [{card}]: decode at {TOLS[0]:g}, fresh result "
+            f"faulted in ahead by {k} threads: decode "
+            f"{statistics.median(dec):.4f} s, of which the download "
+            f"{statistics.median(d2h):.4f} s"
+            + (" (the codec's choice)" if k == chosen else ""))
+    return rows
+
+
 class Launches:
     """The kernels' launch counts on the main paths: each path or row runs
     with the wrappers' counts set to 0 just before it and read just after,
@@ -698,29 +902,30 @@ def split_host(fld, tol):
     """Stage times of the host-entropy path (seconds)."""
     import torch
     from waverange_tpu_torch import native as wn
+    from waverange_tpu_torch.core import staging as S
     from waverange_tpu_torch.ops import quant as Q
 
     torch.cuda.synchronize()
     s = [time.perf_counter()]
-    x = torch.from_numpy(fld).cuda()
+    x = S.to_device(fld, "cuda")
     torch.cuda.synchronize()
     s.append(time.perf_counter())
     planes, deps, minv, nlay, *_ = Q.encode_step(x, tol)
     nl = int(nlay)
     s.append(time.perf_counter())
-    planes_np = planes[:nl].cpu().numpy()
+    planes_np = S.to_numpy(planes[:nl])
     s.append(time.perf_counter())
     payload, lens = wn.encode_planes_batch(planes_np, coder=0)
     s.append(time.perf_counter())
     planes_np = wn.decode_planes_batch(payload, lens, fld.size, coder=0)
     s.append(time.perf_counter())
-    pd = torch.from_numpy(planes_np).cuda()
+    pd = S.to_device(planes_np, "cuda")
     torch.cuda.synchronize()
     s.append(time.perf_counter())
     out = Q.decode_step(pd, deps[:nl].clone(), minv[:nl].clone(), fld.shape)
     torch.cuda.synchronize()
     s.append(time.perf_counter())
-    out.cpu()
+    S.to_numpy(out)
     s.append(time.perf_counter())
     d = np.diff(s)
     return {"h2d_field_s": d[0], "device_encode_s": d[1],
@@ -750,13 +955,14 @@ def code_blocks_split(planes, n):
 def split_device(fld, tol):
     """Stage times of the device-entropy path (seconds)."""
     import torch
+    from waverange_tpu_torch.core import staging as S
     from waverange_tpu_torch.ops import quant as Q
     from waverange_tpu_torch.ops import rans as R
 
     n = fld.size
     torch.cuda.synchronize()
     s = [time.perf_counter()]
-    x = torch.from_numpy(fld).cuda()
+    x = S.to_device(fld, "cuda")
     torch.cuda.synchronize()
     s.append(time.perf_counter())
     planes, deps, minv, nlay, *_ = Q.encode_step(x, tol)
@@ -769,12 +975,12 @@ def split_device(fld, tol):
                          torch.from_numpy(ftab).cuda(), int(lens.sum()))
     torch.cuda.synchronize()
     s.append(time.perf_counter())
-    data = buf.cpu().numpy().tobytes()
+    data = S.to_host_bytes(buf)
     s.append(time.perf_counter())
     del x, planes, c, buf
     table = R.parse_planes(data, lens, n)
     s.append(time.perf_counter())
-    data_d = R.bytes_tensor(data).cuda()
+    data_d = S.to_device(np.frombuffer(data, np.uint8), "cuda")
     table_d = torch.from_numpy(table).cuda()
     torch.cuda.synchronize()
     s.append(time.perf_counter())
@@ -785,7 +991,7 @@ def split_device(fld, tol):
     out = Q.decode_step(pd, deps[:nl].clone(), minv[:nl].clone(), fld.shape)
     torch.cuda.synchronize()
     s.append(time.perf_counter())
-    out.cpu()
+    S.to_numpy(out)
     s.append(time.perf_counter())
     d = np.diff(s)
     del pd, out
@@ -1363,8 +1569,6 @@ def phase_remaining(card, fld, natives, h_ms, launches):
     `decode_planes`, `decode_compute_seconds`, `build-lib` and its ABI,
     and `graft_entry.dryrun_multichip(1)` in a world of one on NCCL; each
     byte for byte. Returns the rows of times."""
-    from concurrent.futures import ThreadPoolExecutor
-
     import torch
     import torch.distributed as dist
     from waverange_tpu_torch import graft_entry as GE
@@ -1630,6 +1834,9 @@ def main():
     rans_times, rans_bounds = phase_rans(card, check, fld)
     times.update(rans_times)
     bounds.update(rans_bounds)
+    t0 = time.perf_counter()
+    staging = phase_staging(card, fld)
+    log(f"staging: phase 2b took {time.perf_counter() - t0:.1f} s")
     counts = Launches()
     rows, natives = phase_main(card, fld, counts)
     t0 = time.perf_counter()
@@ -1683,7 +1890,7 @@ def main():
                 "plain_ms": times[k][1], "bound_ms": bounds[k][0],
                 "bound_by": bounds[k][1], "library_ms": None}
                for k in replaces]
-    log(json.dumps({"card": card, "main_path": rows,
+    log(json.dumps({"card": card, "staging": staging, "main_path": rows,
                     "entry_points": entry_rows, "parallel": parallel,
                     "remaining": remaining, "bench": bench_rows}))
     log(json.dumps({"kernels": kernels}))

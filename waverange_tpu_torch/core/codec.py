@@ -46,6 +46,7 @@ from .. import native as wn
 from ..ops import rans
 from ..ops.quant import decode_step, encode_step
 from ..utils import timed, timed_if
+from . import staging
 
 # f32 quantization floors at a few ulp of 2^-24: below this relative
 # tolerance precision="native" on a device cannot meet the error contract
@@ -236,7 +237,7 @@ def encode_device(arr: np.ndarray, tolrel: float, wtflag: int, levels: int,
     the entropy stage; returns the record as a dict (native's keys)."""
     spans = entropy == "device"
     with timed_if(spans, "encode.h2d"):
-        x = torch.from_numpy(arr).to(dev)
+        x = staging.to_device(arr, dev)
     with timed_if(spans, "encode.step"):
         step = encode_step(x, tolrel, wtflag=bool(wtflag), levels=levels)
         del x
@@ -248,7 +249,7 @@ def encode_device(arr: np.ndarray, tolrel: float, wtflag: int, levels: int,
     if entropy == "device":
         payload, lens = rans.encode_planes_joined(planes, planes.shape[1])
     else:
-        payload, lens = wn.encode_planes_batch(planes.cpu().numpy(),
+        payload, lens = wn.encode_planes_batch(staging.to_numpy(planes),
                                                coder=cid)
     return with_payload(meta, payload, lens)
 
@@ -332,17 +333,18 @@ def decode_device(meta: dict, shape, cid: int, entropy: str,
     nl = int(meta["nlay"])
     n = int(np.prod(shape))
     lens = meta["len_enc_vec"][:nl]
+    out = staging.host_result(shape, np.float64, dev)
     if entropy == "device":
         planes = rans.decode_planes_device(meta["data"], n, device=dev,
                                            lens=lens)
     else:
-        planes = torch.from_numpy(wn.decode_planes_batch(
-            meta["data"], lens, n, coder=cid)).to(dev)
+        planes = staging.to_device(wn.decode_planes_batch(
+            meta["data"], lens, n, coder=cid), dev)
     spans = entropy == "device"
     with timed_if(spans, "decode.step"):
         fld = decode_planes(meta, planes, shape)
     with timed_if(spans, "decode.d2h"):
-        return fld.cpu().numpy()
+        return staging.to_numpy(fld, out)
 
 
 def decode_planes(meta: dict, planes: torch.Tensor, shape) -> torch.Tensor:

@@ -52,6 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import staging
 from ..utils import timed
 
 PROB_BITS = 14
@@ -629,7 +630,7 @@ def encode_planes_joined(planes: torch.Tensor, n: int):
                            int(lens.sum()))
         del c
     with timed("encode.d2h"):
-        return buf.cpu().numpy().tobytes(), lens
+        return staging.to_host_bytes(buf), lens
 
 
 def encode_planes_device(planes: torch.Tensor, n: int) -> list[bytes]:
@@ -817,7 +818,8 @@ def decode_planes_device(streams, n: int, device="cuda",
     with timed("decode.parse"):
         table = parse_planes(streams, lens, n)
     with timed("decode.h2d"):
-        data = bytes_tensor(streams).to(dev)
+        data = staging.to_device(
+            np.frombuffer(memoryview(streams).cast("B"), np.uint8), dev)
         table = torch.from_numpy(table).to(dev)
     with timed("decode.entropy"):
         return decode_blocks(data, table, L, n)
